@@ -11,11 +11,18 @@ rejection 4.0) -> FusionModule (PE-NeRF) -> EvalSink, as ``bench.py``
 configures it.  One sequential run gives the quality numbers (ATE-RMSE,
 PSNR after 2000 NGP iterations, as QUALITY.md measures them); one
 threaded run, with the launch counters zeroed just before it, gives
-keyframes/s and shows that the main path went through every kernel.
+keyframes/s and shows that the main path went through its kernels.
+
+Then the tracker's other lookup configurations, tracking without mapping
+(DataModule -> SlamModule -> EvalSink), same weights and thresholds, the
+counters zeroed before each: (a) ``corr_impl="pallas"`` with the sparse
+Schur solve and global BA at the end, (b) ``corr_impl="pallas_grouped"``,
+(c) the same on 336x600 frames, whose feature width 75 is no multiple of
+16, where the lookup goes to the single-level kernel.
 
 Output, in order: the card's name and power limit, the kernel build time,
-one line per kernel check, the pipeline lines, the ``kernels`` JSON line,
-and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+one line per kernel check, the pipeline and path lines, the ``kernels``
+JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without the ``ok`` line.  Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
@@ -23,7 +30,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +43,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H, W, N_FRAMES, BUFFER = 336, 640, 30, 24
 E_ACTIVE = 48
 N_ACT = 36                  # active edge slots in the gated kernel check
+W_ODD = 600                 # path (c): feature width 75, not a multiple of 16
 NGP_HORIZON = 2000          # QUALITY.md: NGP iterations before PSNR
 ATE_LIMIT_M = 0.25          # QUALITY.md 0.1835 m; random weights ~0.79 m
 SEED = 0
@@ -44,6 +51,7 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+SLEEP_CYCLES = 40_000_000   # about 20 ms of device sleep ahead of a timing
 
 # kernel vs plain version: both evaluate the same f32 operations in the
 # same order with round-to-nearest and no fused multiply-add, so they
@@ -65,48 +73,65 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median of ``reps`` launches, each timed with CUDA events."""
+    """Mean device time of one call.  ``reps`` calls are queued back to
+    back behind a device-side sleep and timed as one span with CUDA events,
+    so the host's cost per launch (tens of microseconds, more than some of
+    these kernels take) stays out of the span while the device is busy."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    events = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        events.append((a, b))
+    b.record()
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
+    return a.elapsed_time(b) / reps
+
+
+def support_taps(c, real_dims, slab_dims, scales, block=False):
+    """In-bounds taps of the 8x8 supports around coords ``c`` (double),
+    summed over pixels and levels.  ``block``: each level-l tap stands for
+    its 2^l x 2^l level-0 block and the levels share one plane, so a pixel
+    needs the largest of its levels' regions, in level-0 elements."""
+    total, per_pixel = 0.0, None
+    for (hr, wr), (hs, ws), s in zip(real_dims, slab_dims, scales):
+        h_ok = torch.tensor(float(min(hr, hs)), device=c.device)
+        w_ok = torch.tensor(float(min(wr, ws)), device=c.device)
+        xi = torch.clamp(torch.floor(c[..., 0] / s) - 3, -8, wr + 8)
+        yi = torch.clamp(torch.floor(c[..., 1] / s) - 3, -8, hr + 8)
+        nx = torch.clamp(torch.minimum(xi + 8, w_ok) - torch.clamp(xi, min=0),
+                         min=0)
+        ny = torch.clamp(torch.minimum(yi + 8, h_ok) - torch.clamp(yi, min=0),
+                         min=0)
+        if block:
+            n = nx * ny * s * s
+            per_pixel = n if per_pixel is None else torch.maximum(per_pixel,
+                                                                  n)
+        else:
+            total += float((nx * ny).sum())
+    return float(per_pixel.sum()) if block else total
 
 
 def lookup_traffic(coords, real_dims, slab_dims, out, n_act,
-                   flops_per_tap_row):
+                   flops_per_tap_row, scales=(1.0, 2.0, 4.0, 8.0),
+                   block=False):
     """Least bytes and flops of one lookup call on these inputs.
 
     Bytes: each active (edge, pixel, level) reads the in-bounds part of
-    its 8x8 bf16 tap support once, plus its 8-byte coords; the whole
-    output is written once.  Flops: the interpolation arithmetic per
-    (active pixel-edge, level, window row)."""
+    its 8x8 bf16 tap support once (``block``: the level-0 region its
+    levels share), plus its 8-byte coords; the whole output is written
+    once.  Flops: the interpolation arithmetic per (active pixel-edge,
+    level, window row), plus one add per element of a block sum."""
     c = coords[:n_act].double()
-    taps = 0.0
-    for lvl in range(4):
-        s = 2.0 ** lvl
-        h_ok = min(real_dims[lvl][0], slab_dims[lvl][0])
-        w_ok = min(real_dims[lvl][1], slab_dims[lvl][1])
-        xi = torch.clamp(torch.floor(c[..., 0] / s) - 3, -8,
-                         real_dims[lvl][1] + 8)
-        yi = torch.clamp(torch.floor(c[..., 1] / s) - 3, -8,
-                         real_dims[lvl][0] + 8)
-        nx = torch.clamp(torch.minimum(xi + 8, torch.tensor(float(w_ok),
-                         device=c.device)) - torch.clamp(xi, min=0), min=0)
-        ny = torch.clamp(torch.minimum(yi + 8, torch.tensor(float(h_ok),
-                         device=c.device)) - torch.clamp(yi, min=0), min=0)
-        taps += float((nx * ny).sum())
+    taps = support_taps(c, real_dims, slab_dims, scales, block)
     n_pix = c.shape[0] * c.shape[1] * c.shape[2]
     nbytes = taps * 2 + n_pix * 8 + out.numel() * out.element_size()
-    flops = n_pix * 4 * 7 * flops_per_tap_row
+    flops = n_pix * len(scales) * 7 * flops_per_tap_row
+    if block:
+        flops += taps
     return nbytes, flops
 
 
@@ -205,12 +230,97 @@ def kernel_phase(dev):
         "replaces": "nerf_slam_tpu/ops/corr_pallas.py:165",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    del levels
+
+    # kernels #3 and #5: one stored level per launch, coords in level
+    # units, once per level shape of their paths: #5 on the row-padded
+    # slabs of the 336x640 tracker, #3 on those of the 336x600 tracker
+    # (where corr_impl="pallas_grouped" sends the lookup to it)
+    for name, fn, plain, wf, line in (
+            ("corr_lookup_level", corr_lookup.lookup_level,
+             corr_lookup.lookup_level_plain, W_ODD // 8, 767),
+            ("corr_lookup_level_grouped", corr_lookup.lookup_level_grouped,
+             corr_lookup.lookup_level_grouped_plain, w, 699)):
+        f1 = torch.randn((E_ACTIVE, 128, h, wf), generator=g, device=dev)
+        f2 = torch.randn((E_ACTIVE, 128, h, wf), generator=g, device=dev)
+        slabs = corr.build_pyramid_bf16(f1, f2, 4, pad_rows_to=8)
+        del f1, f2
+        coords = (camera.coords_grid(h, wf, device=dev)[None] + 3.0
+                  * torch.randn((E_ACTIVE, h, wf, 2), generator=g,
+                                device=dev))
+        per = []
+        for lvl, vol in enumerate(slabs):
+            cl = (coords / 2 ** lvl).contiguous()
+            got, want = fn(vol, cl), plain(vol, cl)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not math.isfinite(err) or err > TOL_F32:
+                raise RuntimeError(f"{name} level {lvl} differs from its "
+                                   f"plain version: max |err| {err} > "
+                                   f"{TOL_F32}")
+            ms = time_ms(lambda: fn(vol, cl))
+            plain_ms = time_ms(lambda: plain(vol, cl), reps=20, warmup=2)
+            sd = [tuple(vol.shape[-2:])]
+            nb, fl = lookup_traffic(cl, sd, sd, got, E_ACTIVE, 49,
+                                    scales=(1.0,))
+            b_ms, b_by = bound(nb, fl)
+            per.append(dict(shape=list(sd[0]), err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bytes=nb,
+                            flops=fl))
+            log(f"kernel {name} E={E_ACTIVE} {h}x{wf} level {lvl} "
+                f"{sd[0][0]}x{sd[0][1]}: max|err| {err:.3g} (tol {TOL_F32}) "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}, {nb / 1e6:.1f} MB)")
+        del slabs
+        # per launch: the mean over the four level shapes of one lookup
+        b_ms, b_by = bound(sum(p["bytes"] for p in per) / 4,
+                           sum(p["flops"] for p in per) / 4)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "nerf_slam_tpu_torch/ops/csrc/corr_lookup.cu",
+            "replaces": f"nerf_slam_tpu/ops/corr_pallas.py:{line}",
+            "max_abs_err": max(p["err"] for p in per),
+            "ms": sum(p["ms"] for p in per) / 4,
+            "plain_ms": sum(p["plain_ms"] for p in per) / 4,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "per_level": [{k: p[k] for k in ("shape", "ms", "plain_ms",
+                                             "bound_ms")} for p in per]})
+
+    # kernel #4: four levels from the row-padded level-0 slab alone
+    vol0 = corr.build_pyramid_bf16(feats(E_ACTIVE), feats(E_ACTIVE), 1,
+                                   pad_rows_to=8)[0]
+    coords = flowed(E_ACTIVE, 3.0)
+    got = corr_lookup.lookup_pyramid_l0(vol0, coords, dims)
+    want = corr_lookup.lookup_pyramid_l0_plain(vol0, coords, dims)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    del want
+    if not math.isfinite(err) or err > TOL_F32:
+        raise RuntimeError(f"level-0 lookup differs from its plain version: "
+                           f"max |err| {err} > {TOL_F32}")
+    ms = time_ms(lambda: corr_lookup.lookup_pyramid_l0(vol0, coords, dims),
+                 reps=10, warmup=2)
+    plain_ms = time_ms(lambda: corr_lookup.lookup_pyramid_l0_plain(
+        vol0, coords, dims), reps=3, warmup=1)
+    sd0 = [tuple(vol0.shape[-2:])] * 4
+    nb, fl = lookup_traffic(coords, dims, sd0, got, E_ACTIVE, 49, block=True)
+    b_ms, b_by = bound(nb, fl)
+    log(f"kernel corr_lookup_l0 E={E_ACTIVE} {h}x{w} slab "
+        f"{sd0[0][0]}x{sd0[0][1]}: max|err| {err:.3g} (tol {TOL_F32}) "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nb / 1e6:.1f} MB)")
+    entries.append({
+        "name": "corr_lookup_l0", "route": "cuda",
+        "source": "nerf_slam_tpu_torch/ops/csrc/corr_lookup.cu",
+        "replaces": "nerf_slam_tpu/ops/corr_pallas.py:282",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return entries
 
 
-def build_main_path(dev):
-    """Frontend and fusion as bench.py builds its production cell."""
-    from nerf_slam_tpu_torch.fusion import NerfFusion, NerfFusionConfig
+def build_frontend(dev, width: int = W, **extra):
+    """The tracker as bench.py configures its production cell; ``extra``
+    overrides ``FrontendConfig`` fields."""
     from nerf_slam_tpu_torch.models import DroidNet, load_flax_weights
     from nerf_slam_tpu_torch.tracking import (FrontendConfig,
                                               RaftVisualFrontend)
@@ -218,16 +328,22 @@ def build_main_path(dev):
 
     flat, meta = load_arrays(os.path.join(ROOT, "weights_synthetic.npz"))
     net = load_flax_weights(DroidNet(dtype=torch.bfloat16), flat)
-    cfg = FrontendConfig(
+    cfg = FrontendConfig(**{**dict(
         buffer=BUFFER, e_active=E_ACTIVE, e_inactive=E_ACTIVE,
         p_window=BUFFER, k_depth=BUFFER + 4, motion_filter_thresh=2.4,
         keyframe_thresh=4.0, damping_scale=float(meta["damping_scale"]),
-        damping_offset=float(meta["damping_offset"]))
-    frontend = RaftVisualFrontend(net, cfg, (H, W), device=dev)
+        damping_offset=float(meta["damping_offset"])), **extra})
+    return RaftVisualFrontend(net, cfg, (H, width), device=dev)
+
+
+def build_main_path(dev):
+    """Frontend and fusion as bench.py builds its production cell."""
+    from nerf_slam_tpu_torch.fusion import NerfFusion, NerfFusionConfig
+
     fusion = NerfFusion(NerfFusionConfig(buffer=BUFFER, height=H, width=W,
                                          batch_rays=4096, iters_per_spin=10),
                         seed=SEED, device=dev)
-    return frontend, fusion
+    return build_frontend(dev), fusion
 
 
 def run_pipeline(frames, frontend, fusion, parallel: bool):
@@ -270,12 +386,9 @@ def trajectory_error(sink) -> float:
 
 
 def pipeline_phase(dev):
-    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
     from nerf_slam_tpu_torch.ops import corr_lookup
 
-    ds = SyntheticDataset(SyntheticConfig(n_frames=N_FRAMES, height=H,
-                                          width=W))
-    frames = [ds[k] for k in range(len(ds))]
+    frames = synthetic_frames(W)
     frontend, fusion = build_main_path(dev)
 
     # quality: the sequential run QUALITY.md's protocol uses
@@ -305,7 +418,8 @@ def pipeline_phase(dev):
         f"keyframes of {N_FRAMES} frames in {wall:.3f} s, ATE-RMSE "
         f"{ate:.4f} m, {fusion.iteration} NGP iterations")
     log(f"launches on the main path: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
+               if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")
@@ -313,6 +427,79 @@ def pipeline_phase(dev):
         if not a <= ATE_LIMIT_M:
             raise RuntimeError(f"{name} ATE-RMSE {a:.4f} m > {ATE_LIMIT_M}")
     return launches
+
+
+def synthetic_frames(width: int):
+    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
+    ds = SyntheticDataset(SyntheticConfig(n_frames=N_FRAMES, height=H,
+                                          width=width))
+    return [ds[k] for k in range(len(ds))]
+
+
+# the tracker's other configurations: (tag, frame width, FrontendConfig
+# overrides, the counter that must move, counters that must stay 0)
+PATHS = (
+    ("a", W, dict(corr_impl="pallas", schur_impl="sparse", global_ba=True),
+     "corr_lookup_l0",
+     ("corr_lookup_grouped4", "corr_lookup_level",
+      "corr_lookup_level_grouped")),
+    ("b", W, dict(corr_impl="pallas_grouped"), "corr_lookup_level_grouped",
+     ("corr_lookup_grouped4", "corr_lookup_l0", "corr_lookup_level")),
+    ("c", W_ODD, dict(corr_impl="pallas_grouped"), "corr_lookup_level",
+     ("corr_lookup_grouped4", "corr_lookup_l0",
+      "corr_lookup_level_grouped")),
+)
+
+
+def path_phase(dev):
+    """Tracking without mapping under each of ``PATHS``; returns the
+    launches of each path's own kernel."""
+    from nerf_slam_tpu_torch.ops import corr_lookup
+    from nerf_slam_tpu_torch.pipeline import (DataModule, EvalSink,
+                                              SlamModule, connect,
+                                              run_sequential)
+    counted = {}
+    for tag, width, extra, kernel, idle in PATHS:
+        frames = synthetic_frames(width)
+        frontend = build_frontend(dev, width, **extra)
+        data, slam, sink = DataModule(frames), SlamModule(frontend), \
+            EvalSink()
+        connect(data, slam, "data")
+        connect(slam, sink, "slam")
+        torch.cuda.synchronize()
+        corr_lookup.reset_launches()
+        t0 = time.perf_counter()
+        run_sequential([data, slam, sink], max_spins=20 * N_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(corr_lookup.launches)
+        if not frontend.stop or sink.last_full is None:
+            raise RuntimeError(f"path ({tag}) did not run to its end")
+        ate = trajectory_error(sink)
+        n_kf = frontend.kf_idx + 1
+        log(f"path ({tag}) {extra} {H}x{width}: {n_kf} keyframes of "
+            f"{N_FRAMES} frames in {wall:.2f} s, ATE-RMSE {ate:.4f} m, "
+            f"launches {launches}")
+        if extra.get("global_ba"):
+            if frontend.last_gba_scores is None:
+                raise RuntimeError(f"path ({tag}): global BA did not run")
+            s0, s1 = frontend.last_gba_scores
+            log(f"path ({tag}) global BA: last_gba_scores ({s0:.4f}, "
+                f"{s1:.4f}), rolled back: {s1 < s0}")
+        if launches[kernel] <= 0:
+            raise RuntimeError(f"path ({tag}): kernel {kernel} was not "
+                               f"launched")
+        stray = [k for k in idle if launches[k]]
+        if stray:
+            raise RuntimeError(f"path ({tag}) launched {stray}, which its "
+                               f"configuration does not use")
+        if not ate <= ATE_LIMIT_M:
+            raise RuntimeError(f"path ({tag}) ATE-RMSE {ate:.4f} m > "
+                               f"{ATE_LIMIT_M}")
+        counted[kernel] = launches[kernel]
+        del frontend, data, slam, sink
+        torch.cuda.empty_cache()
+    return counted
 
 
 def main() -> int:
@@ -333,6 +520,7 @@ def main() -> int:
               f"beside this script", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(card_line())                 # nvidia-smi's name, power.limit
@@ -349,8 +537,12 @@ def main() -> int:
 
     entries = kernel_phase(dev)
     launches = pipeline_phase(dev)
+    torch.cuda.empty_cache()
+    launches.update(path_phase(dev))
     for e in entries:
         e["launches"] = launches[e["name"]]
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -174,3 +174,44 @@ def frame_distance_bidirectional(poses, disps, intrinsics, ii, jj,
     """0.5 * (d(ii->jj) + d(jj->ii))."""
     return 0.5 * (frame_distance(poses, disps, intrinsics, ii, jj, beta)
                   + frame_distance(poses, disps, intrinsics, jj, ii, beta))
+
+
+def depth_filter(poses, disps, intrinsics, ix, thresh):
+    """Multi-view depth-consistency count (DROID's depth_filter_kernel).
+
+    Each keyframe in ``ix`` is reprojected into its 6 neighbours (ix-1,
+    ix-2, ix-3, ix+3, ix+4, ix+5, the CUDA kernel's schedule); a neighbour
+    agrees at a pixel when the reprojected depth lies within ``thresh`` of
+    the neighbour's depth at one of the 4 surrounding pixels.  Neighbours
+    outside [0, N) do not count.  ``thresh``: a scalar or (len(ix),).
+    Returns (len(ix), H, W) counts."""
+    N, H, W = disps.shape
+    ix = torch.as_tensor(ix, dtype=torch.int64, device=disps.device)
+    thresh = torch.as_tensor(thresh, dtype=disps.dtype, device=disps.device) \
+        .expand(ix.shape[0])[:, None, None]
+    X0 = iproj(disps[ix], intrinsics[ix])
+    count = torch.zeros((ix.shape[0], H, W), dtype=disps.dtype,
+                        device=disps.device)
+    rows = torch.arange(ix.shape[0], device=disps.device)[:, None, None]
+    for n in range(6):
+        jx = ix - n - 1 if n < 3 else ix + n
+        valid_j = ((jx >= 0) & (jx < N))[:, None, None]
+        js = jx.clamp(0, N - 1)
+        X1 = se3.act4(se3.relpose(poses[ix], poses[js])[:, None, None, :], X0)
+        fx, fy, cx, cy = intrinsics[js][:, None, None, :].unbind(-1)
+        front = X1[..., 2] > 0.01
+        Z = torch.where(front, X1[..., 2], torch.full_like(X1[..., 2], 1e6))
+        u0 = torch.floor(fx * X1[..., 0] / Z + cx).long()
+        v0 = torch.floor(fy * X1[..., 1] / Z + cy).long()
+        inb = (u0 >= 0) & (v0 >= 0) & (u0 < W - 1) & (v0 < H - 1) & front
+        u0c, v0c = u0.clamp(0, W - 2), v0.clamp(0, H - 2)
+        zj = 1.0 / torch.clamp(X1[..., 3] / Z, min=1e-8)
+        dmap = disps[js]
+        agree = torch.zeros_like(inb)
+        for dv in (0, 1):
+            for du in (0, 1):
+                dn = dmap[rows, v0c + dv, u0c + du]
+                agree |= torch.abs(zj - 1.0 / torch.clamp(dn, min=1e-8)) \
+                    < thresh
+        count = count + (agree & inb & valid_j).to(disps.dtype)
+    return count

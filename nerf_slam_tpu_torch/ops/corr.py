@@ -10,10 +10,15 @@ Layout (the pretrained corr-encoder conv depends on it):
 
 The lookup kernels of the tracking hot loop live in ``corr_lookup``;
 :func:`lookup_level` is the plain reference they are tested against.
+:class:`CorrPyramidPallas` is the pyramid that looks up through those
+kernels, :class:`CorrPyramid` the one that uses the reference, and
+:func:`alt_corr_level` correlates on the fly without a volume (global BA).
 """
 from __future__ import annotations
 
 import torch
+
+from . import corr_lookup
 
 
 def build_volume(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
@@ -98,11 +103,56 @@ def lookup_level(volume: torch.Tensor, coords: torch.Tensor,
     S = torch.gather(volume.reshape(E, H1, W1, H2 * W2), -1, idx)
     S = S.reshape(E, H1, W1, n_sup, n_sup)          # [y_tap, x_tap]
     S = S * (in_y[..., :, None] & in_x[..., None, :]).to(S.dtype)
-    out = ((1 - dx) * (1 - dy))[..., None] * S[..., :rd, :rd] \
+    out = _window(S, dx, dy, rd)                     # (E,H1,W1,b,a)
+    return out.permute(0, 4, 3, 1, 2).reshape(E, rd * rd, H1, W1)
+
+
+def _window(S: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
+            rd: int) -> torch.Tensor:
+    """Bilinear recombination of a support S[..., y_tap, x_tap] into the
+    (..., b, a) window."""
+    return ((1 - dx) * (1 - dy))[..., None] * S[..., :rd, :rd] \
         + (dx * (1 - dy))[..., None] * S[..., :rd, 1:] \
         + ((1 - dx) * dy)[..., None] * S[..., 1:, :rd] \
-        + (dx * dy)[..., None] * S[..., 1:, 1:]      # (E,H1,W1,b,a)
-    return out.permute(0, 4, 3, 1, 2).reshape(E, rd * rd, H1, W1)
+        + (dx * dy)[..., None] * S[..., 1:, 1:]
+
+
+def alt_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                   coords: torch.Tensor, radius: int = 3,
+                   chunk: int = 8) -> torch.Tensor:
+    """On-the-fly windowed correlation, no volume: each pixel of ``fmap1``
+    (E, C, H1, W1), the level-0 features, is dotted with the bilinear taps
+    of ``fmap2`` (E, C, H2, W2), the features at this pyramid level, around
+    ``coords`` (E, H1, W1, 2) in level units.  Returns (E, (2r+1)^2, H1,
+    W1), channels x-offset major; ``chunk`` edges at a time bound the
+    (chunk, H1, W1, (2r+2)^2, C) tap tensor."""
+    E, C, H1, W1 = fmap1.shape
+    H2, W2 = fmap2.shape[-2:]
+    rd = 2 * radius + 1
+    n_sup = rd + 1
+    offs = torch.arange(n_sup, device=fmap1.device)
+    outs = []
+    for s in range(0, E, chunk):
+        f1, f2, co = fmap1[s:s + chunk], fmap2[s:s + chunk], \
+            coords[s:s + chunk]
+        n = f1.shape[0]
+        x0, y0 = co[..., 0], co[..., 1]
+        fx, fy = torch.floor(x0), torch.floor(y0)
+        dx, dy = (x0 - fx)[..., None], (y0 - fy)[..., None]
+        xi = fx.long()[..., None] - radius + offs
+        yi = fy.long()[..., None] - radius + offs
+        ok = (((yi >= 0) & (yi < H2))[..., :, None]
+              & ((xi >= 0) & (xi < W2))[..., None, :])
+        idx = (yi.clamp(0, H2 - 1)[..., :, None] * W2
+               + xi.clamp(0, W2 - 1)[..., None, :]).reshape(n, -1)
+        f2f = (f2.reshape(n, C, H2 * W2).float() / 4.0).transpose(1, 2)
+        taps = torch.gather(f2f, 1, idx[..., None].expand(-1, -1, C)) \
+            .reshape(n, H1, W1, n_sup * n_sup, C)
+        S = torch.einsum("nhwsc,nchw->nhws", taps, f1.float() / 4.0)
+        S = S.reshape(n, H1, W1, n_sup, n_sup) * ok
+        out = _window(S, dx, dy, rd)                        # (n,H1,W1,b,a)
+        outs.append(out.permute(0, 4, 3, 1, 2).reshape(n, rd * rd, H1, W1))
+    return torch.cat(outs, dim=0)
 
 
 class CorrPyramid:
@@ -122,3 +172,62 @@ class CorrPyramid:
         return torch.cat([lookup_level(v.float(), coords / (2 ** lvl),
                                        self.radius)
                           for lvl, v in enumerate(self.levels)], dim=1)
+
+    def cat(self, other: "CorrPyramid") -> "CorrPyramid":
+        return CorrPyramid([torch.cat([a, b], dim=0) for a, b in
+                            zip(self.levels, other.levels)], self.radius)
+
+    def __getitem__(self, index) -> "CorrPyramid":
+        return CorrPyramid([lv[index] for lv in self.levels], self.radius)
+
+
+# the grouped TPU kernel takes 16-pixel groups of sublane-aligned rows;
+# other shapes go to the per-pixel single-level kernel
+_GROUP = 16
+
+
+class CorrPyramidPallas:
+    """Correlation pyramid (bf16 levels) that looks up through the CUDA
+    kernels of ``corr_lookup``: ``nhwc(coords) -> (E, H1, W1, 196)`` and the
+    channel-major ``__call__(coords) -> (E, 196, H1, W1)``.
+
+    It calls the counterpart of whichever kernel the JAX class of the same
+    name calls: four non-empty levels go to :func:`corr_lookup.
+    lookup_pyramid` in one launch; another level count, an empty level, or
+    ``grouped=True`` go level by level, to :func:`corr_lookup.
+    lookup_level_grouped` where the grouped TPU kernel applies (W1 a
+    multiple of 16, slab rows a multiple of 8) and to :func:`corr_lookup.
+    lookup_level` otherwise.  The CUDA kernels themselves take every shape.
+    """
+
+    def __init__(self, levels, radius: int = 3, grouped: bool = False):
+        if radius != 3:
+            raise ValueError("the lookup kernels are specialized to radius 3")
+        self.levels = [lv.to(torch.bfloat16).contiguous() for lv in levels]
+        self.radius = radius
+        self.grouped = grouped
+
+    @staticmethod
+    def from_volume(volume: torch.Tensor,
+                    num_levels: int = 4) -> "CorrPyramidPallas":
+        return CorrPyramidPallas(build_pyramid(volume, num_levels))
+
+    def nhwc(self, coords: torch.Tensor) -> torch.Tensor:
+        coords = coords.contiguous()
+        ok4 = len(self.levels) == 4 and all(
+            v.shape[-1] > 0 and v.shape[-2] > 0 for v in self.levels)
+        if ok4 and not self.grouped:
+            return corr_lookup.lookup_pyramid(self.levels, coords)
+        outs = []
+        for lvl, vol in enumerate(self.levels):
+            takes_group = (self.grouped and vol.shape[2] % _GROUP == 0
+                           and vol.shape[-2] % 8 == 0)
+            fn = (corr_lookup.lookup_level_grouped if takes_group
+                  else corr_lookup.lookup_level)
+            outs.append(fn(vol, coords / (2 ** lvl)))
+        return torch.cat(outs, dim=-1)
+
+    def __call__(self, coords: torch.Tensor) -> torch.Tensor:
+        coords = coords.contiguous()
+        return torch.cat([corr_lookup.lookup_level_cm(vol, coords / (2 ** lvl))
+                          for lvl, vol in enumerate(self.levels)], dim=1)

@@ -1,6 +1,6 @@
 """The tracking hot loop's correlation-pyramid lookups (CUDA + plain).
 
-Two functions, each a hand-written CUDA kernel (``csrc/corr_lookup.cu``)
+Five functions, each a hand-written CUDA kernel (``csrc/corr_lookup.cu``)
 with its plain PyTorch version beside it:
 
 - :func:`lookup_pyramid_grouped4` -- the update-loop lookup from four
@@ -8,6 +8,15 @@ with its plain PyTorch version beside it:
   ``nerf_slam_tpu/ops/corr_pallas.py:lookup_pyramid_grouped4_nhwc``.
 - :func:`lookup_pyramid` -- the motion-filter lookup from four unpadded
   levels.  Replaces ``corr_pallas.py:lookup_pyramid_pallas_nhwc``.
+- :func:`lookup_level` (and its channel-major form
+  :func:`lookup_level_cm`) -- one stored level, coords in level units.
+  Replaces ``corr_pallas.py:lookup_level_pallas_nhwc``.
+- :func:`lookup_level_grouped` -- the same function for the tracker's
+  ``corr_impl="pallas_grouped"``.  Replaces
+  ``corr_pallas.py:lookup_level_pallas_grouped_nhwc``.
+- :func:`lookup_pyramid_l0` -- four levels from the level-0 slab alone
+  (``corr_impl="pallas"``).  Replaces
+  ``corr_pallas.py:lookup_pyramid_l0_nhwc``.
 
 A wrapper runs the plain version only for tensors on the CPU (the tests);
 for CUDA tensors it launches its kernel or raises.  ``launches`` counts
@@ -26,7 +35,9 @@ RD = 7            # window taps per axis (radius 3)
 NSUP = 8          # support taps per axis
 CHANNELS = 4 * RD * RD
 
-launches = {"corr_lookup_grouped4": 0, "corr_lookup_pyramid": 0}
+launches = {"corr_lookup_grouped4": 0, "corr_lookup_pyramid": 0,
+            "corr_lookup_level": 0, "corr_lookup_level_grouped": 0,
+            "corr_lookup_l0": 0}
 
 _MODE_HAT_BF16, _MODE_HAT_F32, _MODE_EXACT_F32 = 0, 1, 2
 
@@ -115,28 +126,82 @@ def lookup_pyramid_grouped4_plain(levels: Sequence[torch.Tensor],
     return out
 
 
+def _combine(t: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
+             scale: float = 1.0) -> torch.Tensor:
+    """Bilinear recombination of the fp32 support t[row, col] (..., 8, 8)
+    into the 49 window channels, a*7 + b: w00*S00 + w10*S10 + w01*S01 +
+    w11*S11 in that order, fp32 weights (scaled by ``scale``)."""
+    dx, dy = dx[..., None, None], dy[..., None, None]
+    t0, t1 = t[..., :RD, :], t[..., 1:, :]                   # rows b, b+1
+    w00 = scale * (1 - dx) * (1 - dy)
+    w10 = scale * dx * (1 - dy)
+    w01 = scale * (1 - dx) * dy
+    w11 = scale * dx * dy
+    o = (w00 * t0[..., :RD] + w10 * t0[..., 1:]
+         + w01 * t1[..., :RD] + w11 * t1[..., 1:])          # [b, a]
+    return o.transpose(-1, -2).reshape(*o.shape[:-2], RD * RD)
+
+
+def lookup_level_plain(vol: torch.Tensor,
+                       coords: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`lookup_level`: exact bf16 taps of one level
+    (bounds = the slab as given), fp32 bilinear weights."""
+    hs, ws = vol.shape[-2:]
+    xl, yl = coords[..., 0].float(), coords[..., 1].float()
+    fx, fy = torch.floor(xl), torch.floor(yl)
+    t = _taps(vol, _start(fy, -8.0, hs + 8.0).long(),
+              _start(fx, -8.0, ws + 8.0).long(), hs, ws)
+    return _combine(t, xl - fx, yl - fy)
+
+
+def lookup_level_grouped_plain(vol: torch.Tensor,
+                               coords: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`lookup_level_grouped`.  The grouped TPU
+    kernel samples the same taps with the same weights in the same term
+    order as the per-pixel one (its 16-pixel grouping and y-major store
+    only shape the work for the MXU), so this is :func:`lookup_level_plain`
+    on the slab as given, padding rows included."""
+    return lookup_level_plain(vol, coords)
+
+
 def lookup_pyramid_plain(levels: Sequence[torch.Tensor],
                          coords: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`lookup_pyramid`."""
-    E, H1, W1 = coords.shape[:3]
+    c = coords.float()
+    return torch.cat([lookup_level_plain(vol, c * (1.0 / (2 ** lvl)))
+                      for lvl, vol in enumerate(levels)], dim=-1)
+
+
+def lookup_pyramid_l0_plain(vol0: torch.Tensor, coords: torch.Tensor,
+                            dims) -> torch.Tensor:
+    """Plain version of :func:`lookup_pyramid_l0`, in the kernel's order:
+    per level l the 2^l level-0 rows of a block are summed in fp32 (row
+    after row) and rounded to bf16, the block's 2^l columns are summed in
+    fp32 (column after column), and the support is sampled from those
+    block sums with 4^-l folded into the fp32 weights.  Block rows and
+    columns at or beyond ``dims[l]`` are never formed, so cropped and
+    padded level-0 rows stay out."""
+    E, H1, W1, H2p, W2 = vol0.shape
     x0, y0 = coords[..., 0].float(), coords[..., 1].float()
+    v = vol0.float()
     outs = []
-    for lvl, vol in enumerate(levels):
-        hs, ws = vol.shape[-2:]
-        inv = 1.0 / (2 ** lvl)
+    for lvl, (hl, wl) in enumerate(dims):
+        n = 2 ** lvl
+        hl, wl = min(hl, H2p // n), min(wl, W2 // n)
+        blk = v[..., :hl * n, :wl * n].reshape(E, H1, W1, hl, n, wl, n)
+        rows = blk[..., 0, :, :]
+        for k in range(1, n):
+            rows = rows + blk[..., k, :, :]
+        rows = rows.to(torch.bfloat16).float()               # (.., hl, wl, n)
+        sums = rows[..., 0]
+        for k in range(1, n):
+            sums = sums + rows[..., k]                       # (.., hl, wl)
+        inv = 1.0 / n
         xl, yl = x0 * inv, y0 * inv
         fx, fy = torch.floor(xl), torch.floor(yl)
-        dx, dy = (xl - fx)[..., None], (yl - fy)[..., None]
-        t = _taps(vol, _start(fy, -8.0, hs + 8.0).long(),
-                  _start(fx, -8.0, ws + 8.0).long(), hs, ws)
-        t0, t1 = t[..., :RD, :], t[..., 1:, :]               # rows b, b+1
-        w00 = ((1 - dx) * (1 - dy))[..., None]
-        w10 = (dx * (1 - dy))[..., None]
-        w01 = ((1 - dx) * dy)[..., None]
-        w11 = (dx * dy)[..., None]
-        o = (w00 * t0[..., :RD] + w10 * t0[..., 1:]
-             + w01 * t1[..., :RD] + w11 * t1[..., 1:])      # [b, a]
-        outs.append(o.transpose(-1, -2).reshape(E, H1, W1, RD * RD))
+        t = _taps(sums, _start(fy, -8.0, dims[lvl][0] + 8.0).long(),
+                  _start(fx, -8.0, dims[lvl][1] + 8.0).long(), hl, wl)
+        outs.append(_combine(t, xl - fx, yl - fy, inv * inv))
     return torch.cat(outs, dim=-1)
 
 
@@ -144,19 +209,28 @@ def lookup_pyramid_plain(levels: Sequence[torch.Tensor],
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    fn = build.load("corr_lookup").corr_lookup_launch
-    # without argtypes ctypes would pass each pointer as a 32-bit int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+# without argtypes ctypes would pass each pointer as a 32-bit int
+_ARGTYPES = {
+    "corr_lookup_launch": ([_VOID] * 4 + [ctypes.POINTER(_INT)]
+                           + [_VOID] * 3 + [_INT] * 4 + [_VOID]),
+    "corr_lookup_level_launch": [_VOID] * 3 + [_INT] * 5 + [_VOID],
+    "corr_lookup_l0_launch": ([_VOID, ctypes.POINTER(_INT), _VOID, _VOID]
+                              + [_INT] * 5 + [_VOID]),
+}
+
+
+def _lib(entry: str = "corr_lookup_launch"):
+    fn = getattr(build.load("corr_lookup"), entry)
+    fn.argtypes = _ARGTYPES[entry]
+    fn.restype = _INT
     return fn
 
 
-def _check_inputs(levels, coords: torch.Tensor):
-    if len(levels) != 4:
-        raise ValueError(f"expected 4 pyramid levels, got {len(levels)}")
+def _check_inputs(levels, coords: torch.Tensor, n_levels: int = 4):
+    if len(levels) != n_levels:
+        raise ValueError(f"expected {n_levels} pyramid level(s), got "
+                         f"{len(levels)}")
     if coords.dtype != torch.float32 or coords.dim() != 4 \
             or coords.shape[-1] != 2 or not coords.is_contiguous():
         raise ValueError("coords must be contiguous float32 (E, H1, W1, 2)")
@@ -180,6 +254,10 @@ def _launch(levels, coords, n_act, out, real_dims, mode):
     err = _lib()(*[v.data_ptr() for v in levels], arr, coords.data_ptr(),
                  None if n_act is None else n_act.data_ptr(),
                  out.data_ptr(), E, H1, W1, mode, stream)
+    _raise_on(err)
+
+
+def _raise_on(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: CUDA error "
                            f"{err}")
@@ -230,4 +308,79 @@ def lookup_pyramid(levels: Sequence[torch.Tensor],
     _launch(levels, coords, None, out, [tuple(v.shape[-2:]) for v in levels],
             _MODE_EXACT_F32)
     launches["corr_lookup_pyramid"] += 1
+    return out
+
+
+def _launch_level(vol: torch.Tensor, coords: torch.Tensor,
+                  counter: str) -> torch.Tensor:
+    """One stored level through the single-level kernel, counted under
+    ``counter``; an empty level has no taps and launches nothing."""
+    _check_inputs([vol], coords, n_levels=1)
+    E, H1, W1, H2, W2 = vol.shape
+    if H2 == 0 or W2 == 0:
+        return torch.zeros((E, H1, W1, RD * RD), device=coords.device,
+                           dtype=torch.float32)
+    out = torch.empty((E, H1, W1, RD * RD), device=coords.device,
+                      dtype=torch.float32)
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    _raise_on(_lib("corr_lookup_level_launch")(
+        vol.data_ptr(), coords.data_ptr(), out.data_ptr(), E, H1, W1, H2, W2,
+        stream))
+    launches[counter] += 1
+    return out
+
+
+def lookup_level(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Windowed lookup from ONE bf16 level (E, H1, W1, H2, W2) with coords
+    (E, H1, W1, 2) in LEVEL units: exact taps, fp32 bilinear weights.
+    Returns (E, H1, W1, 49) fp32, channels x-offset major; zeros for an
+    empty level."""
+    if coords.device.type == "cpu":
+        return lookup_level_plain(vol, coords)
+    return _launch_level(vol, coords, "corr_lookup_level")
+
+
+def lookup_level_cm(vol: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """:func:`lookup_level`, channel-major: (E, 49, H1, W1)."""
+    return lookup_level(vol, coords).permute(0, 3, 1, 2)
+
+
+def lookup_level_grouped(vol: torch.Tensor,
+                         coords: torch.Tensor) -> torch.Tensor:
+    """The tracker's per-level lookup under ``corr_impl="pallas_grouped"``:
+    :func:`lookup_level`'s function on a row-padded slab, whose padding
+    rows are read as they are (zeros) because no real dims are given.
+    Returns (E, H1, W1, 49) fp32."""
+    if coords.device.type == "cpu":
+        return lookup_level_grouped_plain(vol, coords)
+    return _launch_level(vol, coords, "corr_lookup_level_grouped")
+
+
+def lookup_pyramid_l0(vol0: torch.Tensor, coords: torch.Tensor,
+                      dims: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+    """4-level lookup from the level-0 slab alone: a level-l tap is the
+    sum of its 2^l x 2^l level-0 block (row sums rounded to bf16, as the
+    TPU kernel rounds them), 4^-l folded into the fp32 weights.
+
+    vol0: (E, H1, W1, H2p, W2) bf16 (rows may be padded); coords: (E, H1,
+    W1, 2) level-0 [x, y] fp32; dims: the four real (floor-halved) level
+    dims, dims[l] * 2^l within the slab.  Returns (E, H1, W1, 196) fp32.
+    """
+    if coords.device.type == "cpu":
+        return lookup_pyramid_l0_plain(vol0, coords, dims)
+    _check_inputs([vol0], coords, n_levels=1)
+    E, H1, W1, H2p, W2 = vol0.shape
+    if len(dims) != 4 or any(hl * 2 ** l > H2p or wl * 2 ** l > W2
+                             or hl < 0 or wl < 0
+                             for l, (hl, wl) in enumerate(dims)):
+        raise ValueError(f"dims {tuple(dims)} do not fit a level-0 slab of "
+                         f"{(H2p, W2)}")
+    out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
+                      dtype=torch.float32)
+    arr = (ctypes.c_int * 8)(*[d[0] for d in dims], *[d[1] for d in dims])
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    _raise_on(_lib("corr_lookup_l0_launch")(
+        vol0.data_ptr(), arr, coords.data_ptr(), out.data_ptr(), E, H1, W1,
+        H2p, W2, stream))
+    launches["corr_lookup_l0"] += 1
     return out

@@ -8,15 +8,17 @@ One Gauss-Newton step over padded arrays:
 
 The host builds a small index plan per graph change (:func:`plan`, or the
 frontend's slot-aligned plan); the device assembles the reduced camera
-system with a dense (P, K, 6, HW) coupling tensor, Schur-eliminates the
-depths, solves by Cholesky and back-substitutes.  Conventions: DROID
+system, Schur-eliminates the depths (contracting the dense (P, K, 6, HW)
+coupling tensor or, when the plan carries an interaction list, summing the
+coupling pairs that share a depth slot), solves by Cholesky and
+back-substitutes.  Conventions: DROID
 tangent [v, w], left retraction on cam_T_world; the gauge is fixed by
 freezing pose slot 0 when the window includes keyframe 0.  Depth
 covariances use the exact ``Q + Q^2 ||L^-1 E||^2`` marginal.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,7 +27,13 @@ from ..geometry import camera, se3
 
 
 class DBAPlan(NamedTuple):
-    """Index plan for one factor-graph topology (device tensors)."""
+    """Index plan for one factor-graph topology (device tensors).
+
+    The optional pair tensors select the sparse Schur assembly: couplings
+    are the 2E (pose slot, depth slot) incidences [Eiz ++ Ejz], and
+    (pair_a, pair_b) lists the coupling pairs that share a depth slot
+    (:func:`compute_pairs`).  Without them the dense (P, K) coupling
+    tensor is contracted."""
     ii: torch.Tensor          # (E,) int64 source kf per edge
     jj: torch.Tensor          # (E,) int64 target kf per edge
     pi: torch.Tensor          # (E,) window pose slot of ii, or -1
@@ -37,10 +45,14 @@ class DBAPlan(NamedTuple):
     p_fixed: torch.Tensor     # (P,) float 0/1 (gauge-fixed: dx = 0)
     kx: torch.Tensor          # (K,) global kf per depth slot (clipped)
     k_valid: torch.Tensor     # (K,) float 0/1
+    pair_a: Optional[torch.Tensor] = None      # (L,) int64 coupling index
+    pair_b: Optional[torch.Tensor] = None      # (L,) int64 coupling index
+    pair_valid: Optional[torch.Tensor] = None  # (L,) float 0/1
 
 
 def plan_from_numpy(a, device) -> DBAPlan:
-    """DBAPlan from a dict of numpy arrays (validity flags as 0/1)."""
+    """DBAPlan from a dict of numpy arrays (validity flags as 0/1); the
+    pair arrays are optional."""
     def i(k):
         return torch.as_tensor(np.asarray(a[k], np.int64), device=device)
 
@@ -50,7 +62,10 @@ def plan_from_numpy(a, device) -> DBAPlan:
     return DBAPlan(ii=i("ii"), jj=i("jj"), pi=i("pi"), pj=i("pj"),
                    kk=i("kk"), edge_valid=f("edge_valid"), px=i("px"),
                    p_valid=f("p_valid"), p_fixed=f("p_fixed"), kx=i("kx"),
-                   k_valid=f("k_valid"))
+                   k_valid=f("k_valid"),
+                   pair_a=i("pair_a") if "pair_a" in a else None,
+                   pair_b=i("pair_b") if "pair_a" in a else None,
+                   pair_valid=f("pair_valid") if "pair_a" in a else None)
 
 
 def compute_pairs(pi: np.ndarray, pj: np.ndarray, kk: np.ndarray,
@@ -61,8 +76,8 @@ def compute_pairs(pi: np.ndarray, pj: np.ndarray, kk: np.ndarray,
     coupling E+e couples (pj[e], kk[e]).  Returns padded (pair_a, pair_b,
     pair_valid) enumerating every ordered coupling pair that shares a depth
     slot, both poses in the window; the padding is a power of two, at
-    least ``pad_to``.  The dense Schur path of :func:`solve_system` does
-    not need it.
+    least ``pad_to``.  :func:`solve_system` takes its sparse Schur path
+    when the plan carries the list.
     """
     cp_pose = np.concatenate([pi, pj])
     cp_k = np.concatenate([kk, kk])
@@ -85,7 +100,8 @@ def compute_pairs(pi: np.ndarray, pj: np.ndarray, kk: np.ndarray,
 
 def plan(ii, jj, kf0: int, kf1: int, E: int, P: int, K: int,
          device="cuda") -> DBAPlan:
-    """Padded index plan for edges (ii, jj) and the window [kf0, kf1)."""
+    """Padded index plan for edges (ii, jj) and the window [kf0, kf1),
+    with the sparse-Schur interaction list."""
     ii = np.asarray(ii, dtype=np.int64)
     jj = np.asarray(jj, dtype=np.int64)
     n = ii.shape[0]
@@ -109,14 +125,17 @@ def plan(ii, jj, kf0: int, kf1: int, E: int, P: int, K: int,
         p_fixed[0] = 1.0
     k_valid = np.zeros(K)
     k_valid[:kf_ids.shape[0]] = 1.0
+    pi = pad(np.where((ii >= kf0) & (ii < kf1), ii - kf0, -1), E, -1)
+    pj = pad(np.where((jj >= kf0) & (jj < kf1), jj - kf0, -1), E, -1)
+    kk = pad(np.array([kmap[int(i)] for i in ii], np.int64), E, -1)
+    valid = pad(np.ones(n, np.int64), E, 0)
+    pa, pb, pv = compute_pairs(pi, pj, kk, valid > 0)
     return plan_from_numpy({
-        "ii": pad(ii, E, 0), "jj": pad(jj, E, 0),
-        "pi": pad(np.where((ii >= kf0) & (ii < kf1), ii - kf0, -1), E, -1),
-        "pj": pad(np.where((jj >= kf0) & (jj < kf1), jj - kf0, -1), E, -1),
-        "kk": pad(np.array([kmap[int(i)] for i in ii], np.int64), E, -1),
-        "edge_valid": pad(np.ones(n, np.int64), E, 0),
+        "ii": pad(ii, E, 0), "jj": pad(jj, E, 0), "pi": pi, "pj": pj,
+        "kk": kk, "edge_valid": valid,
         "px": np.clip(px, 0, None), "p_valid": (px < kf1),
         "p_fixed": p_fixed, "kx": pad(kf_ids, K, 0), "k_valid": k_valid,
+        "pair_a": pa, "pair_b": pb, "pair_valid": pv,
     }, device)
 
 
@@ -206,18 +225,59 @@ def _gauge_mask(Hd, vd, p: DBAPlan):
     return Hd, vd * fm, fm
 
 
-def solve_system(Hd, vd, Ehat, C, w, p: DBAPlan, ep=0.1, lm=1e-4):
+_PAIR_CHUNK = 512      # coupling pairs contracted at a time
+
+
+def _sparse_schur(E_blocks, Q, w, p: DBAPlan, fm, P: int, D: int):
+    """S = E Q E^T and v_s = E Q w from the coupling interaction list:
+    O(pairs * 36 * HW) work instead of the dense O((6P)^2 * K * HW)."""
+    cp_pose = torch.cat([p.pi, p.pj])                    # (2E,)
+    cp_k = torch.cat([p.kk, p.kk])
+    E_all = torch.cat(E_blocks, dim=0)                   # (2E, 6, HW)
+    free = fm.reshape(P, D)[:, 0]
+    cp_pose_c = cp_pose.clamp(0, P - 1)
+    cp_k_c = cp_k.clamp(0, Q.shape[0] - 1)
+    cp_ok = ((cp_pose >= 0) & (cp_k >= 0)).to(E_all.dtype) * free[cp_pose_c]
+    E_all = E_all * cp_ok[:, None, None]
+
+    vs_c = torch.einsum("cdh,ch->cd", E_all, (Q * w)[cp_k_c])
+    vs = seg_sum(vs_c, torch.where(cp_ok > 0, cp_pose_c, -1), P)
+
+    S_grid = torch.zeros((P * P, D, D), dtype=E_all.dtype,
+                         device=E_all.device)
+    for s in range(0, p.pair_a.shape[0], _PAIR_CHUNK):
+        pa = p.pair_a[s:s + _PAIR_CHUNK]
+        pb = p.pair_b[s:s + _PAIR_CHUNK]
+        pv = p.pair_valid[s:s + _PAIR_CHUNK]
+        Bq = E_all[pb] * Q[cp_k_c[pb]][:, None, :]
+        Sp = torch.einsum("lch,ldh->lcd", E_all[pa], Bq) * pv[:, None, None]
+        idx = torch.where(pv > 0, cp_pose_c[pa] * P + cp_pose_c[pb], -1)
+        S_grid = S_grid + seg_sum(Sp, idx, P * P)
+    S = S_grid.reshape(P, P, D, D).permute(0, 2, 1, 3).reshape(P * D, P * D)
+    return S, vs.reshape(P * D)
+
+
+def solve_system(Hd, vd, Ehat, C, w, p: DBAPlan, ep=0.1, lm=1e-4,
+                 E_blocks=None):
     """Schur-eliminate depths, solve the damped reduced camera system and
     back-substitute.  Returns dx (P, 6), dz (K, HW), the Cholesky factor L
     and Q = 1/C; a failed factorization gives a zero pose step (the
-    reference's tolerance) without a host sync."""
+    reference's tolerance) without a host sync.
+
+    When the plan carries an interaction list and the per-edge coupling
+    blocks ``E_blocks`` = (Eiz, Ejz) of :func:`linearize` are given, S is
+    assembled from the list; else from the dense coupling tensor."""
     P, K, D, HW = Ehat.shape
     Q = 1.0 / C
     Hd, vd, fm = _gauge_mask(Hd, vd, p)
     Ehat = Ehat * fm.reshape(P, D)[:, None, :, None]
-    EQ = Ehat * Q[None, :, None, :]
-    S = torch.einsum("pkdh,qkeh->pdqe", EQ, Ehat).reshape(P * D, P * D)
-    vs = torch.einsum("pkdh,kh->pd", EQ, w).reshape(P * D)
+    if (p.pair_a is not None and p.pair_a.shape[0] > 0
+            and E_blocks is not None):
+        S, vs = _sparse_schur(E_blocks, Q, w, p, fm, P, D)
+    else:
+        EQ = Ehat * Q[None, :, None, :]
+        S = torch.einsum("pkdh,qkeh->pdqe", EQ, Ehat).reshape(P * D, P * D)
+        vs = torch.einsum("pkdh,kh->pd", EQ, w).reshape(P * D)
     RCM = Hd - S
     rhs = vd - vs
     RCMd = RCM + torch.diag(ep + lm * torch.diagonal(RCM))
@@ -269,7 +329,8 @@ def dba_iterations(poses, disps, intrinsics, targets, weights, eta,
     for _ in range(iters):
         blocks = linearize(poses, disps, intrinsics, targets, weights, p)
         Hd, vd, Ehat, C, w = assemble(blocks, p, disps, eta, disps_sens)
-        dx, dz, _, _ = solve_system(Hd, vd, Ehat, C, w, p, ep, lm)
+        dx, dz, _, _ = solve_system(Hd, vd, Ehat, C, w, p, ep, lm,
+                                    E_blocks=blocks[2])
         old = poses[px_read]
         upd = torch.where(mask > 0, se3.retr(old, dx), old)
         poses = torch.cat([poses, poses[:1]], dim=0)

@@ -12,10 +12,14 @@ slot bookkeeping on the host.  Per keyframe the frontend
      syncs the edge slots: compaction, new-edge initialization, pyramid
      builds for new edges only;
   3. runs iters1 update iterations -- projective transform, the update
-     lookup kernel (n_act-gated), ConvGRU, dense BA -- then the keyframe
-     distance decides: reject (roll the buffers down) or run iters2 more
-     iterations and the export tail (covariances, flow RMS, convex
-     upsampling, next-keyframe seeding).
+     lookup kernel chosen by ``cfg.corr_impl``, ConvGRU, dense BA -- then
+     the keyframe distance decides: reject (roll the buffers down) or run
+     iters2 more iterations and the export tail (covariances, flow RMS,
+     convex upsampling, next-keyframe seeding).
+
+At the end of the sequence ``cfg.global_ba`` runs the backend: full-map
+bundle adjustment over a denser graph with on-the-fly correlation, kept
+only if the map's multi-view depth consistency does not fall.
 
 The JAX package fuses these steps into single jitted programs to save
 round trips to a remote TPU; this port runs them eagerly, in the same
@@ -66,6 +70,18 @@ class FrontendConfig:
     damping_scale: float = 0.2
     damping_offset: float = 1e-7
     sigma_idepth: float = 0.1        # initial inverse-depth variance prior
+    # update-loop lookup: "pallas4g" (four pooled slabs, bf16 hat weights,
+    # n_act-gated) | "pallas" (level-0 slab only, levels 1-3 derived in the
+    # kernel) | "pallas_grouped" (four slabs, one exact-tap launch per
+    # level) | "onehot" (the plain reference lookup, no kernel)
+    corr_impl: str = "pallas4g"
+    # Schur complement: "dense" (one contraction over the (P, K) coupling
+    # tensor) | "sparse" (interaction list of coupling pairs)
+    schur_impl: str = "dense"
+    global_ba: bool = False          # full-map BA at terminate()
+
+
+CORR_IMPLS = ("pallas4g", "pallas", "pallas_grouped", "onehot")
 
 
 @dataclass
@@ -100,7 +116,9 @@ class EdgeState:
     hidden: torch.Tensor          # (Ea, h, w, 128) GRU hidden (net dtype)
     flow: torch.Tensor            # (Ea, h, w, 2) fp32 GRU flow targets
     flow_weight: torch.Tensor     # (Ea, h, w, 2) fp32
-    corr_levels: list             # 4 x (Ea, h, w, h_l padded to 8, w_l) bf16
+    corr_levels: list             # (Ea, h, w, h_l padded to 8, w_l) bf16:
+                                  # 4 levels, or level 0 alone under
+                                  # corr_impl="pallas"
 
 
 @dataclass
@@ -122,8 +140,20 @@ class RaftVisualFrontend:
     def __init__(self, net: DroidNet, cfg: FrontendConfig, image_size,
                  world_T_cam0_t0: Optional[np.ndarray] = None,
                  device="cuda"):
+        if cfg.corr_impl not in CORR_IMPLS:
+            raise ValueError(f"corr_impl {cfg.corr_impl!r} is not one of "
+                             f"{CORR_IMPLS}")
+        if cfg.schur_impl not in ("dense", "sparse"):
+            raise ValueError(f"schur_impl {cfg.schur_impl!r} is not 'dense' "
+                             f"or 'sparse'")
         self.cfg = cfg
         self.device = torch.device(device)
+        # stored pyramid levels per edge
+        self._n_levels = 1 if cfg.corr_impl == "pallas" else 4
+        # interaction-list padding of the sparse Schur plan (compute_pairs
+        # grows to the next power of two if a window needs more)
+        self._pair_pad = max(2048, int(2 ** np.ceil(np.log2(
+            8 * (cfg.e_active + cfg.e_inactive)))))
         # tracking is inference only: no autograd graphs anywhere
         self.net = net.to(self.device).eval().requires_grad_(False)
         self.H, self.W = image_size
@@ -154,6 +184,7 @@ class RaftVisualFrontend:
         self.last_kf_dist = float("inf")
         self.last_motion_mag = None
         self.last_flow_rms = None
+        self.last_gba_scores: Optional[Tuple[float, float]] = None
         self.kf_idx_to_f_idx: Dict[int, int] = {}
         self.f_idx_to_kf_idx: Dict[int, int] = {}
         # deferred edge maintenance: graph edits compose here and are
@@ -189,7 +220,7 @@ class RaftVisualFrontend:
             contexts=full((B, h, w, 128), 0.0, bf16),
             cst_contexts=full((B, h, w, 128), 0.0, bf16))
         levels, hl, wl = [], h, w
-        for _ in range(4):
+        for _ in range(self._n_levels):
             levels.append(full((Ea, h, w, -(-hl // 8) * 8, wl), 0.0, bf16))
             hl, wl = hl // 2, wl // 2
         self.edges = EdgeState(
@@ -213,10 +244,8 @@ class RaftVisualFrontend:
         st = self.state
         f1 = st.features[last_kf].permute(2, 0, 1)[None]
         f2 = feat_cur.to(torch.bfloat16).permute(2, 0, 1)[None]
-        levels = [lv.to(torch.bfloat16).contiguous() for lv in
-                  corr.build_pyramid(corr.build_volume(f1, f2))]
-        cvals = corr_lookup.lookup_pyramid(levels, self._coords0[None]
-                                           .contiguous())
+        cvals = corr.CorrPyramidPallas.from_volume(
+            corr.build_volume(f1, f2)).nhwc(self._coords0[None])
         _, delta, _ = self.net.update(st.contexts[last_kf][None],
                                       st.cst_contexts[last_kf][None],
                                       cvals.to(torch.bfloat16))
@@ -304,7 +333,7 @@ class RaftVisualFrontend:
             flow_w[pos] = 0.0
             f = st.features.permute(0, 3, 1, 2)
             for lv, nl in zip(levels, corr.build_pyramid_bf16(
-                    f[ii], f[jj], 4, pad_rows_to=8)):
+                    f[ii], f[jj], self._n_levels, pad_rows_to=8)):
                 lv[pos] = nl
         self.edges = EdgeState(hidden=hidden, flow=flow, flow_weight=flow_w,
                                corr_levels=levels)
@@ -425,8 +454,7 @@ class RaftVisualFrontend:
     def _plan(self, use_inactive: bool, kf0: int, kf1: int) -> dba.DBAPlan:
         """Slot-aligned DBA plan over [active slots ++ inactive slots]."""
         cfg, g = self.cfg, self.graph
-        Ea, Ei, P, K = cfg.e_active, cfg.e_inactive, cfg.p_window, \
-            cfg.k_depth
+        Ea, Ei = cfg.e_active, cfg.e_inactive
         ii_all = np.zeros(Ea + Ei, np.int64)
         jj_all = np.zeros(Ea + Ei, np.int64)
         valid = np.zeros(Ea + Ei, bool)
@@ -438,6 +466,14 @@ class RaftVisualFrontend:
             jj_all[Ea:Ea + n_in] = g.jj_inactive
             valid[Ea:Ea + n_in] = ((g.ii_inactive >= kf0 - 3)
                                    & (g.jj_inactive >= kf0 - 3))
+        return self._slot_aligned_plan(ii_all, jj_all, valid, kf0, kf1)
+
+    def _slot_aligned_plan(self, ii_all, jj_all, valid, kf0: int,
+                           kf1: int) -> dba.DBAPlan:
+        """DBA plan whose edge axis is the given slot layout; under
+        ``schur_impl="sparse"`` it carries the interaction list."""
+        cfg = self.cfg
+        P, K = cfg.p_window, cfg.k_depth
         kf_ids = np.unique(np.concatenate([np.arange(kf0, kf1),
                                            ii_all[valid]]))
         if kf_ids.shape[0] > K:
@@ -451,7 +487,7 @@ class RaftVisualFrontend:
         kx[:kf_ids.shape[0]] = kf_ids
         k_valid = np.zeros(K)
         k_valid[:kf_ids.shape[0]] = 1.0
-        return dba.plan_from_numpy({
+        arrays = {
             "ii": np.where(valid, ii_all, 0), "jj": np.where(valid, jj_all, 0),
             "pi": np.where(valid & (ii_all >= kf0) & (ii_all < kf1),
                            ii_all - kf0, -1),
@@ -461,7 +497,31 @@ class RaftVisualFrontend:
                             for i, v in zip(ii_all, valid)], np.int64),
             "edge_valid": valid, "px": np.clip(px, 0, cfg.buffer - 1),
             "p_valid": px < kf1, "p_fixed": p_fixed, "kx": kx,
-            "k_valid": k_valid}, self.device)
+            "k_valid": k_valid}
+        if cfg.schur_impl == "sparse":
+            arrays["pair_a"], arrays["pair_b"], arrays["pair_valid"] = \
+                dba.compute_pairs(arrays["pi"], arrays["pj"], arrays["kk"],
+                                  valid, pad_to=self._pair_pad)
+        return dba.plan_from_numpy(arrays, self.device)
+
+    def _lookup(self, n_act: torch.Tensor):
+        """The update loop's lookup under ``cfg.corr_impl``: a function
+        from level-0 coords (Ea, h, w, 2) to (Ea, h, w, 196) correlation
+        features, through the kernel the JAX tracker's configuration of the
+        same name reaches."""
+        impl, levels = self.cfg.corr_impl, self.edges.corr_levels
+        dims = corr_lookup.pyramid_dims(self.h, self.w)
+        if impl == "pallas4g":
+            # active edges occupy the slot prefix; the kernel reads the
+            # count from device memory and zero-fills the padded slots
+            return lambda c: corr_lookup.lookup_pyramid_grouped4(
+                levels, c, dims, n_act)
+        if impl == "pallas":
+            return lambda c: corr_lookup.lookup_pyramid_l0(levels[0], c, dims)
+        if impl == "pallas_grouped":
+            return corr.CorrPyramidPallas(levels, grouped=True).nhwc
+        cp = corr.CorrPyramid(levels)
+        return lambda c: cp(c).permute(0, 2, 3, 1)
 
     def _iterate(self, n: int, c: dict, plan: dba.DBAPlan, gates_inp):
         """n GRU + DBA iterations over the active slots, updating the
@@ -471,18 +531,14 @@ class RaftVisualFrontend:
         on = plan.edge_valid[:Ea][:, None, None, None] > 0
         seg = torch.where(on[:, 0, 0, 0], plan.kk[:Ea], -1)
         K = plan.kx.shape[0]
-        # active edges occupy the slot prefix; the kernel reads the count
-        # from device memory and zero-fills the padded slots
-        n_act = on.sum().to(torch.int32).reshape(1)
-        dims = corr_lookup.pyramid_dims(self.h, self.w)
+        lookup = self._lookup(on.sum().to(torch.int32).reshape(1))
         sens_k = st.idepths_sensed[plan.kx]
         for _ in range(n):
             coords1, _, _ = camera.projective_transform(
                 c["poses"], c["disps"], st.intrinsics, ii, jj)
             motion = torch.cat([coords1 - self._coords0,
                                 c["flow"] - coords1], -1).clamp(-64.0, 64.0)
-            cvals = corr_lookup.lookup_pyramid_grouped4(
-                self.edges.corr_levels, coords1.contiguous(), dims, n_act)
+            cvals = lookup(coords1.contiguous()).to(torch.bfloat16)
             hidden2, delta, weight, eta = self.net.update(
                 c["hidden"], None, cvals, motion.to(torch.bfloat16), seg, K,
                 False, gates_inp)
@@ -521,8 +577,9 @@ class RaftVisualFrontend:
         blocks = dba.linearize(poses, disps, st.intrinsics, targets, weights,
                                plan)
         Hd, vd, Ehat, C, wv = dba.assemble(blocks, plan, disps, eta_k, sens_k)
+        eb = blocks[2] if cfg.schur_impl == "sparse" else None
         _, _, L, Q = dba.solve_system(Hd, vd, Ehat, C, wv, plan, cfg.ep,
-                                      cfg.lm)
+                                      cfg.lm, E_blocks=eb)
         pose_cov_p, z_cov = dba.covariances(L, Ehat, Q, plan)
         z_cov = z_cov.reshape(K, h, w)
 
@@ -640,6 +697,13 @@ class RaftVisualFrontend:
                 self._initialize()
         elif not self._update_keyframe():
             self.rm_keyframe(self.kf_idx - 1)
+            if batch.get("is_last_frame"):
+                # the sequence ends on a rejected keyframe: the newest
+                # keyframe now sits in slot kf_idx - 1 (the JAX tracker
+                # returns None here and never terminates)
+                self.kf_idx -= 1
+                self.terminate()
+                return self.get_viz_out(batch)
             return None
 
         self.last_k = k
@@ -699,8 +763,141 @@ class RaftVisualFrontend:
             self.update(n_iters=cfg.iters1 + cfg.iters2, seed_next=seed_next)
         return True
 
+    # ------------------------------------------------------------------
+    # the backend: global bundle adjustment
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _normalize_map(poses, disps, n_kf: int):
+        """Rescale the first ``n_kf`` keyframes so their mean inverse depth
+        is 1 (visual_frontend.py:1302-1307); a pure gauge change."""
+        s = disps[:n_kf].mean()
+        disps, poses = disps.clone(), poses.clone()
+        disps[:n_kf] /= s
+        poses[:n_kf, :3] *= s
+        return poses, disps
+
+    @staticmethod
+    def _feature_pyramid(features):
+        """(B, h, w, 128) -> 4 pooled bf16 levels (B, 128, h_l, w_l); a
+        level that cannot halve any more repeats (tiny images)."""
+        pyr = [features.permute(0, 3, 1, 2).float()]
+        for _ in range(3):
+            prev = pyr[-1]
+            pyr.append(corr.avg_pool2(prev) if min(prev.shape[-2:]) >= 2
+                       else prev)
+        return [p.to(torch.bfloat16) for p in pyr]
+
+    def _gba_chunk(self, pyramid, hidden, ctx_inp, coords1, flow, flow_w,
+                   ii_c, jj_c, valid_c, seg_c, n_seg: int):
+        """One GRU pass over a chunk of backend edges with on-the-fly
+        correlation (update_lowmem's inner loop,
+        visual_frontend.py:488-514)."""
+        # the source features are always level 0 (AltCorrBlock)
+        f1 = pyramid[0][ii_c]
+        cvals = torch.cat([
+            corr.alt_corr_level(f1, fmaps[jj_c], coords1 / (2 ** lvl),
+                                radius=3, chunk=max(1, ii_c.shape[0] // 4))
+            for lvl, fmaps in enumerate(pyramid)], dim=1).permute(0, 2, 3, 1)
+        motion = torch.cat([coords1 - self._coords0, flow - coords1],
+                           -1).clamp(-64.0, 64.0)
+        hidden2, delta, weight, eta = self.net.update(
+            hidden, ctx_inp, cvals.to(torch.bfloat16),
+            motion.to(torch.bfloat16), seg_c, n_seg, False)
+        on = valid_c[:, None, None, None] > 0
+        return (torch.where(on, hidden2, hidden),
+                torch.where(on, coords1 + delta, flow),
+                torch.where(on, weight, flow_w), eta)
+
+    def _map_consistency(self) -> float:
+        """Map health without ground truth: the mean multi-view
+        depth-consistency count over the keyframes (depth_filter).  The
+        threshold follows the map's depth gauge, so the score compares
+        across the global-BA rescale.  Only the kf_idx + 1 live keyframes
+        are passed, so unused buffer slots never count as neighbours."""
+        n, st = self.kf_idx + 1, self.state
+        med_z = 1.0 / torch.clamp(torch.median(st.idepths[:n]), min=1e-6)
+        counts = camera.depth_filter(
+            st.cam_T_world[:n], st.idepths[:n], st.intrinsics[:n],
+            torch.arange(n, device=self.device), 0.1 * med_z)
+        return float(counts.mean())
+
+    def global_ba(self, steps: int = 12, chunk: int = 32,
+                  thresh: Optional[float] = None):
+        """Full-map bundle adjustment (backend(), visual_frontend.py:
+        1255-1295): a denser graph from the backend's thresholds, then
+        ``steps`` rounds of chunked GRU flow refinement (on-the-fly
+        correlation) and DBA over all keyframes.
+
+        Guarded: long-range backend edges can lie outside what the GRU was
+        trained on, and the refinement then diverges.  The map's depth
+        consistency is scored before and after, and a run that lowers it
+        is rolled back."""
+        cfg, kf, dev = self.cfg, self.kf_idx, self.device
+        if kf < 2 or steps <= 0:
+            return
+        self._flush_pending()
+        st = self.state
+        if float(st.idepths_sensed[:kf].max()) <= 0:
+            st.cam_T_world, st.idepths = self._normalize_map(
+                st.cam_T_world, st.idepths, kf + 1)
+        # rollback snapshot, taken after the (always safe) rescale
+        snap_poses, snap_disps = st.cam_T_world, st.idepths
+        score0 = self._map_consistency()
+
+        t = kf + 1
+        ii_g, jj_g = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+        d = self.distance(ii_g.ravel(), jj_g.ravel())
+        ii, jj = graphlib.proximity_edges(
+            graphlib.CovisibilityGraph(max_factors=16 * kf), d, kf, 0, 0,
+            2, 3, thresh or 22.0, 16 * kf)
+        n_e = ii.shape[0]
+        if n_e == 0:
+            return
+        E_g = -(-n_e // chunk) * chunk
+        ii_p, jj_p = np.zeros(E_g, np.int64), np.zeros(E_g, np.int64)
+        valid = np.arange(E_g) < n_e
+        ii_p[:n_e], jj_p[:n_e] = ii, jj
+        plan = self._slot_aligned_plan(ii_p, jj_p, valid, 0, t)
+        K = plan.kx.shape[0]
+        seg = torch.where(plan.edge_valid > 0, plan.kk, -1)
+        on = plan.edge_valid
+
+        pyramid = self._feature_pyramid(st.features)
+        hidden = st.contexts[plan.ii].to(self.net.dtype)
+        ctx = st.cst_contexts[plan.ii]
+        flow, _, _ = camera.projective_transform(
+            st.cam_T_world, st.idepths, st.intrinsics, plan.ii, plan.jj)
+        flow_w = torch.zeros_like(flow)
+        eta_buf = torch.full((cfg.buffer, self.h, self.w), 1e-6, device=dev)
+        sens_k = st.idepths_sensed[plan.kx]
+        for _ in range(steps):
+            coords1, _, _ = camera.projective_transform(
+                st.cam_T_world, st.idepths, st.intrinsics, plan.ii, plan.jj)
+            for c0 in range(0, E_g, chunk):
+                sl = slice(c0, c0 + chunk)
+                hidden[sl], flow[sl], flow_w[sl], eta_c = self._gba_chunk(
+                    pyramid, hidden[sl], ctx[sl], coords1[sl], flow[sl],
+                    flow_w[sl], plan.ii[sl], plan.jj[sl], on[sl], seg[sl], K)
+                eta_buf = dba.kx_scatter(eta_buf, plan.kx, plan.k_valid,
+                                         eta_c)
+            eta_k = cfg.damping_scale * eta_buf[plan.kx] + cfg.damping_offset
+            st.cam_T_world, st.idepths = dba.dba_iterations(
+                st.cam_T_world, st.idepths, st.intrinsics, flow, flow_w,
+                eta_k, sens_k, plan, iters=2, ep=1e-2, lm=1e-5)
+        score1 = self._map_consistency()
+        self.last_gba_scores = (score0, score1)
+        if score1 < score0:
+            # the refinement hurt the map: back to the snapshot
+            st.cam_T_world, st.idepths = snap_poses, snap_disps
+        self.viz_idx[:kf + 1] = True
+
     def terminate(self):
-        """End of sequence: flag the whole map for a final viz packet."""
+        """End of sequence: optional global BA (two runs, as the
+        reference's backend), then flag the whole map for a final viz
+        packet (visual_frontend.py:1309-1335)."""
+        if self.cfg.global_ba:
+            self.global_ba(7)
+            self.global_ba(12)
         self.viz_idx[:self.kf_idx + 1] = True
         self.stop = True
 

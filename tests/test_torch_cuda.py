@@ -79,6 +79,70 @@ def test_pyramid_kernel_matches_plain(dev):
         levels, c), atol=TOL_F32, rtol=0)
 
 
+@pytest.mark.parametrize("E,H,W", [(2, 16, 16), (3, 10, 14), (2, 7, 9)])
+def test_level_kernels_match_plain(dev, E, H, W):
+    """Kernels #3 and #5, level by level on row-padded and unpadded slabs
+    (7 rows halve down to an empty last level), coords in level units; each
+    counts under its own name."""
+    f1, f2, c = _inputs(dev, E + W, E, H, W)
+    before = dict(corr_lookup.launches)
+    n = 0
+    for pad in (1, 8):
+        for lvl, vol in enumerate(corr.build_pyramid_bf16(f1, f2, 4,
+                                                          pad_rows_to=pad)):
+            cl = (c / 2 ** lvl).contiguous()
+            for fn, plain in (
+                    (corr_lookup.lookup_level,
+                     corr_lookup.lookup_level_plain),
+                    (corr_lookup.lookup_level_grouped,
+                     corr_lookup.lookup_level_grouped_plain)):
+                got = fn(vol, cl)
+                torch.cuda.synchronize()
+                assert got.shape == (E, H, W, 49)
+                torch.testing.assert_close(got, plain(vol, cl),
+                                           atol=TOL_F32, rtol=0)
+            torch.testing.assert_close(
+                corr_lookup.lookup_level_cm(vol, cl),
+                corr_lookup.lookup_level_plain(vol, cl).permute(0, 3, 1, 2),
+                atol=TOL_F32, rtol=0)
+            n += int(vol.shape[-2] > 0)      # an empty level launches nothing
+    assert corr_lookup.launches["corr_lookup_level"] == \
+        before["corr_lookup_level"] + 2 * n
+    assert corr_lookup.launches["corr_lookup_level_grouped"] == \
+        before["corr_lookup_level_grouped"] + n
+
+
+def test_level_kernel_empty_level_launches_nothing(dev):
+    vol = torch.zeros(2, 3, 5, 0, 0, dtype=torch.bfloat16, device=dev)
+    c = torch.rand(2, 3, 5, 2, device=dev)
+    before = dict(corr_lookup.launches)
+    out = corr_lookup.lookup_level(vol, c)
+    assert out.shape == (2, 3, 5, 49) and (out == 0).all()
+    assert corr_lookup.launches == before
+
+
+@pytest.mark.parametrize("E,H,W", [(2, 16, 16), (3, 18, 20), (2, 7, 9),
+                                   (1, 42, 80)])
+def test_l0_kernel_matches_plain(dev, E, H, W):
+    """Kernel #4 on a row-padded level-0 slab: even halving, odd halving
+    (crops), a last level of 0 rows, and the tracking shape.  Far
+    coordinates exercise the clipped window starts."""
+    f1, f2, c = _inputs(dev, E + H, E, H, W)
+    c[0, 0, :2] = torch.tensor([[-40.0, 3.0], [1e4, 1e4]], device=dev)
+    vol0 = corr.build_pyramid_bf16(f1, f2, 1, pad_rows_to=8)[0]
+    dims = corr_lookup.pyramid_dims(H, W)
+    before = corr_lookup.launches["corr_lookup_l0"]
+    got = corr_lookup.lookup_pyramid_l0(vol0, c, dims)
+    torch.cuda.synchronize()
+    assert corr_lookup.launches["corr_lookup_l0"] == before + 1
+    assert got.shape == (E, H, W, 196) and got.dtype == torch.float32
+    torch.testing.assert_close(
+        got, corr_lookup.lookup_pyramid_l0_plain(vol0, c, dims),
+        atol=TOL_F32, rtol=0)
+    with pytest.raises(ValueError):
+        corr_lookup.lookup_pyramid_l0(vol0, c, ((H + 8, W),) + dims[1:])
+
+
 def test_kernel_wrappers_count_and_reject(dev):
     """A launch adds one to its wrapper's count; inputs the kernel does
     not take raise before any launch."""

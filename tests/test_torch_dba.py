@@ -1,13 +1,14 @@
 """Dense bundle adjustment of the port against the JAX package on one
-synthetic graph: plan, linearization, assembly, the dense Schur solve,
-covariances and several Gauss-Newton iterations, all in f32.
+synthetic graph: plan, linearization, assembly, the Schur solve (dense and
+sparse), covariances and several Gauss-Newton iterations, all in f32.
 
-The JAX plan is used without its sparse-Schur interaction list, which
-selects the dense Schur path the frontend runs by default
-(``FrontendConfig.schur_impl="dense"``).
+Both plans carry the sparse-Schur interaction list; the dense tests strip
+it from both, which selects the dense Schur path the frontend runs by
+default (``FrontendConfig.schur_impl="dense"``).
 """
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from nerf_slam_tpu.geometry import camera as jcam
@@ -63,13 +64,15 @@ def _graph(seed=0):
     return ii, jj, poses0, disps0, intr, targets, weights, eta, sens
 
 
-def _plans(ii, jj):
-    jp = jdba.plan(ii, jj, 0, N, E, P, K)._replace(
-        pair_a=None, pair_b=None, pair_valid=None)
-    tp = tdba.plan(ii, jj, 0, N, E, P, K, device="cpu")
+def _plans(ii, jj, sparse=False, kf0=0, kf1=N):
+    jp = jdba.plan(ii, jj, kf0, kf1, E, P, K)
+    tp = tdba.plan(ii, jj, kf0, kf1, E, P, K, device="cpu")
     for name in tp._fields:
         np.testing.assert_array_equal(_np(getattr(jp, name)),
                                       _np(getattr(tp, name)), err_msg=name)
+    if not sparse:
+        no_pairs = dict(pair_a=None, pair_b=None, pair_valid=None)
+        jp, tp = jp._replace(**no_pairs), tp._replace(**no_pairs)
     return jp, tp
 
 
@@ -147,6 +150,61 @@ def test_dba_iterations_match():
                                atol=1e-3 * np.abs(_np(res.pose_cov)).max())
     np.testing.assert_allclose(_np(z_cov).reshape(K, h, w),
                                _np(res.z_cov), rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("kf0,kf1", [(0, N), (2, N - 1)])
+def test_sparse_schur_matches_dense_and_jax(kf0, kf1):
+    """The interaction-list Schur assembly against the dense contraction
+    of the same system and against the JAX package's sparse path, on the
+    full window and on one with edges and poses outside it.  The two sum
+    the same products pair by pair instead of depth slot by depth slot:
+    S has entries up to ~1e3, so rtol 1e-4 with atol 1e-5 of its maximum;
+    the step inherits it as in the dense test."""
+    ii, jj, poses, disps, intr, tgt, wts, eta, sens = _graph(2)
+    jp, tp = _plans(ii, jj, sparse=True, kf0=kf0, kf1=kf1)
+    assert float(tp.pair_valid.sum()) > 0
+    J, T = _both([poses, disps, intr, tgt, wts, eta, sens])
+    bt = tdba.linearize(*T[:5], tp)
+    st = tdba.assemble(bt, tp, T[1], T[5], T[6])
+    Q = 1.0 / st[3]
+    _, _, fm = tdba._gauge_mask(st[0], st[1], tp)
+    S, vs = tdba._sparse_schur(bt[2], Q, st[4], tp, fm, P, 6)
+    Eh = st[2] * fm.reshape(P, 6)[:, None, :, None]
+    EQ = Eh * Q[None, :, None, :]
+    S_d = torch.einsum("pkdh,qkeh->pdqe", EQ, Eh).reshape(P * 6, P * 6)
+    vs_d = torch.einsum("pkdh,kh->pd", EQ, st[4]).reshape(P * 6)
+    assert float(S_d.abs().max()) > 1.0
+    np.testing.assert_allclose(_np(S), _np(S_d), rtol=1e-4,
+                               atol=1e-5 * float(S_d.abs().max()))
+    np.testing.assert_allclose(_np(vs), _np(vs_d), rtol=1e-4,
+                               atol=1e-5 * float(vs_d.abs().max()))
+
+    bj = jdba.linearize(*J[:5], jp)
+    sj = jdba.assemble(bj, jp, J[1], J[5], J[6])
+    dxj, dzj, _, _ = jdba.solve_system(*sj, jp, E_blocks=bj[2])
+    dxt, dzt, _, _ = tdba.solve_system(*st, tp, E_blocks=bt[2])
+    dxd, dzd, _, _ = tdba.solve_system(
+        *st, tp._replace(pair_a=None, pair_b=None, pair_valid=None))
+    assert np.abs(_np(dxj)).max() > 1e-3
+    for a, b in ((dxj, dxt), (dzj, dzt), (dxd, dxt), (dzd, dzt)):
+        np.testing.assert_allclose(_np(b), _np(a), rtol=1e-3,
+                                   atol=1e-4 * np.abs(_np(a)).max())
+
+
+def test_dba_iterations_sparse_match():
+    """Three Gauss-Newton steps through the sparse Schur path on both
+    sides (a plan with its interaction list selects it): same tolerance
+    as the dense iterations."""
+    ii, jj, poses, disps, intr, tgt, wts, eta, sens = _graph(1)
+    jp, tp = _plans(ii, jj, sparse=True)
+    J, T = _both([poses, disps, intr, tgt, wts, eta, sens])
+    res = jdba.dba_iterations(*J[:5], J[5], J[6], jp, iters=3,
+                              compute_covariances=False)
+    pt, dt = tdba.dba_iterations(*T[:5], T[5], T[6], tp, iters=3)
+    assert np.abs(_np(res.poses) - poses).max() > 1e-3
+    np.testing.assert_allclose(_np(pt), _np(res.poses), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(_np(dt), _np(res.disps), atol=1e-4,
+                               rtol=1e-4)
 
 
 def test_kx_scatter_drops_padded_slots():

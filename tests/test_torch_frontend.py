@@ -124,12 +124,13 @@ def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def _run(weights, mft, kft, check_frame):
+def _run(weights, mft, kft, check_frame, **extra):
     """Both frontends over the frames, re-synced before each; returns
     early from a frame's checks when ``check_frame`` says its decision
-    lay within tolerance of a threshold."""
+    lay within tolerance of a threshold.  ``extra``: further
+    ``FrontendConfig`` fields, the same on both sides."""
     jparams, tnet, frames = weights
-    cfg = dict(SMALL, motion_filter_thresh=mft, keyframe_thresh=kft)
+    cfg = dict(SMALL, motion_filter_thresh=mft, keyframe_thresh=kft, **extra)
     jf = _JaxF32(jparams, jfe.FrontendConfig(**cfg), (H, W))
     tf = tfe.RaftVisualFrontend(tnet, tfe.FrontendConfig(**cfg), (H, W),
                                 device="cpu")
@@ -174,7 +175,7 @@ def _check_state(jf, tf):
                                    atol=2e-2 * np.abs(a).max())
 
 
-def test_frontend_filters_off_matches_jax(weights, exact_lookup):
+def _filters_off(weights, **extra):
     """Filters off: every frame is a keyframe; the keyframe count, the
     graph and, from the first keyframe round on, the poses, idepths and
     covariances match."""
@@ -189,9 +190,68 @@ def test_frontend_filters_off_matches_jax(weights, exact_lookup):
             np.testing.assert_array_equal(out_t["viz_idx"], out_j["viz_idx"])
         return False
 
-    jf, tf = _run(weights, -1.0, -1.0, check)
+    jf, tf = _run(weights, -1.0, -1.0, check, **extra)
     assert tf.kf_idx == N_FRAMES and tf.is_initialized
     assert rounds == list(range(5, N_FRAMES))
+    return jf, tf
+
+
+def test_frontend_filters_off_matches_jax(weights, exact_lookup):
+    _filters_off(weights)
+
+
+@pytest.mark.parametrize("corr_impl,n_levels,lookup", [
+    ("pallas", 1, "lookup_pyramid_l0"),
+    ("pallas_grouped", 4, "lookup_level"),
+    ("onehot", 4, None)])
+def test_frontend_corr_impl_matches_jax(weights, monkeypatch, corr_impl,
+                                        n_levels, lookup):
+    """The tracker's other lookup configurations, frame by frame against
+    the JAX tracker built with the same ``corr_impl``, at the tolerances of
+    the default configuration.  "pallas" stores and copies ONE level per
+    edge and looks up through the level-0 function (kernel #4);
+    "pallas_grouped" at W1 = 8 goes to the single-level function (kernel
+    #3) on both sides, since the grouped TPU kernel needs W1 % 16 == 0;
+    "onehot" uses the plain reference lookup and no kernel function."""
+    calls = {}
+    for name in ("lookup_pyramid_grouped4", "lookup_pyramid_l0",
+                 "lookup_level", "lookup_level_grouped"):
+        real = getattr(corr_lookup, name)
+        monkeypatch.setattr(
+            corr_lookup, name, lambda *a, _n=name, _r=real:
+            (calls.__setitem__(_n, calls.get(_n, 0) + 1), _r(*a))[1])
+    jf, tf = _filters_off(weights, corr_impl=corr_impl)
+    assert len(jf.edges.corr_levels) == len(tf.edges.corr_levels) == n_levels
+    assert [tuple(v.shape) for v in tf.edges.corr_levels] == \
+        [tuple(v.shape) for v in jf.edges.corr_levels]
+    assert set(calls) == ({lookup} if lookup else set())
+
+
+def test_frontend_sparse_schur_matches_jax(weights, exact_lookup):
+    """``schur_impl="sparse"``: both trackers build the interaction list
+    and assemble the Schur complement from it, in the update iterations
+    and in the export tail's covariances."""
+    seen = []
+    real = tfe.dba._sparse_schur
+
+    def spy(*a, **k):
+        seen.append(1)
+        return real(*a, **k)
+
+    tfe.dba._sparse_schur = spy
+    try:
+        _filters_off(weights, schur_impl="sparse")
+    finally:
+        tfe.dba._sparse_schur = real
+    assert seen
+
+
+def test_frontend_rejects_unknown_impls(weights):
+    _, tnet, _ = weights
+    for bad in (dict(corr_impl="pallas5"), dict(schur_impl="banded")):
+        with pytest.raises(ValueError):
+            tfe.RaftVisualFrontend(tnet, tfe.FrontendConfig(**SMALL, **bad),
+                                   (H, W), device="cpu")
 
 
 def test_frontend_production_thresholds_match_jax(weights, exact_lookup):
@@ -227,3 +287,24 @@ def test_frontend_production_thresholds_match_jax(weights, exact_lookup):
     assert mags, "no motion magnitude was compared"
     for k, acc_j, acc_t, near in decisions:
         assert acc_j == acc_t or near, (k, acc_j, acc_t)
+
+
+def test_last_frame_rejected_as_keyframe_still_terminates(weights,
+                                                          exact_lookup):
+    """A sequence whose last frame fails the keyframe-distance test must
+    still end: the tracker terminates on the keyframes it has and emits
+    the final packet.  (The JAX tracker returns None there and never
+    stops, which leaves a pipeline waiting; the port does not copy that.)"""
+    _, tnet, frames = weights
+    cfg = tfe.FrontendConfig(**dict(SMALL, motion_filter_thresh=-1.0,
+                                    keyframe_thresh=1e9))
+    tf = tfe.RaftVisualFrontend(tnet, cfg, (H, W), device="cpu")
+    outs = []
+    for k, pkt in enumerate(frames[:7]):
+        outs.append(tf(k, dict(pkt, is_last_frame=(k == 6))))
+    assert tf.is_initialized and tf.stop_condition()
+    assert tf.kf_idx == SMALL["keyframe_warmup"]       # frames 5, 6 rejected
+    assert outs[5] is None
+    assert outs[6] is not None and outs[6]["is_last_frame"]
+    assert outs[6]["viz_count"] == tf.kf_idx + 1
+    assert torch.isfinite(outs[6]["cam0_poses"]).all()
