@@ -4,8 +4,10 @@
 
 Builds the port's CUDA kernels from ``nerf_slam_tpu_torch/ops/csrc``,
 checks each against its plain PyTorch version at the tracking shapes of
-the 336x640 production cell, times it beside its bound, then drives the
-main path end to end: synthetic frames -> DataModule -> SlamModule
+the 336x640 production cell, times it beside its bound (counted in
+elements and, for the two redesigned kernels, in 32-byte sectors) and,
+for the two one-level kernels, beside one ``F.grid_sample`` call that
+computes the same function, then drives the main path end to end: synthetic frames -> DataModule -> SlamModule
 (RaftVisualFrontend, trained weights, motion filter 2.4 px, keyframe
 rejection 4.0) -> FusionModule (PE-NeRF) -> EvalSink, as ``bench.py``
 configures it.  One sequential run gives the quality numbers (ATE-RMSE,
@@ -58,6 +60,13 @@ SLEEP_CYCLES = 40_000_000   # about 20 ms of device sleep ahead of a timing
 # should agree bit for bit; the limits allow one ulp of the output type at
 # the volumes' magnitude (|v| < 4): bf16 1.6e-2, f32 1e-5
 TOL_BF16, TOL_F32 = 1.6e-2, 1e-5
+# the library yardstick of the one-level kernels, F.grid_sample, takes its
+# grid in the volume's type: in bf16 the sampling positions themselves are
+# rounded (to 2^-8 of the half width, up to 0.08 px at width 80, on volumes
+# whose neighbouring taps differ by several units) and so are its weights,
+# hence the loose limit; on an f32 copy of the volume with an f32 grid
+# only the position arithmetic's f32 rounding (about 1e-5 px) is left
+TOL_LIB_BF16, TOL_LIB_F32 = 1.0, 2e-3
 
 
 def log(msg: str) -> None:
@@ -91,21 +100,29 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
+def support_window(c, real, slab, s):
+    """In-bounds part [x_lo, x_hi) x [y_lo, y_hi) of the 8x8 support around
+    coords ``c`` (double) at a level of scale ``s``, in that level's taps
+    (empty where hi <= lo)."""
+    (hr, wr), (hs, ws) = real, slab
+    h_ok = torch.tensor(float(min(hr, hs)), device=c.device)
+    w_ok = torch.tensor(float(min(wr, ws)), device=c.device)
+    xi = torch.clamp(torch.floor(c[..., 0] / s) - 3, -8, wr + 8)
+    yi = torch.clamp(torch.floor(c[..., 1] / s) - 3, -8, hr + 8)
+    return (torch.clamp(xi, min=0), torch.minimum(xi + 8, w_ok),
+            torch.clamp(yi, min=0), torch.minimum(yi + 8, h_ok))
+
+
 def support_taps(c, real_dims, slab_dims, scales, block=False):
     """In-bounds taps of the 8x8 supports around coords ``c`` (double),
     summed over pixels and levels.  ``block``: each level-l tap stands for
     its 2^l x 2^l level-0 block and the levels share one plane, so a pixel
     needs the largest of its levels' regions, in level-0 elements."""
     total, per_pixel = 0.0, None
-    for (hr, wr), (hs, ws), s in zip(real_dims, slab_dims, scales):
-        h_ok = torch.tensor(float(min(hr, hs)), device=c.device)
-        w_ok = torch.tensor(float(min(wr, ws)), device=c.device)
-        xi = torch.clamp(torch.floor(c[..., 0] / s) - 3, -8, wr + 8)
-        yi = torch.clamp(torch.floor(c[..., 1] / s) - 3, -8, hr + 8)
-        nx = torch.clamp(torch.minimum(xi + 8, w_ok) - torch.clamp(xi, min=0),
-                         min=0)
-        ny = torch.clamp(torch.minimum(yi + 8, h_ok) - torch.clamp(yi, min=0),
-                         min=0)
+    for real, slab, s in zip(real_dims, slab_dims, scales):
+        x_lo, x_hi, y_lo, y_hi = support_window(c, real, slab, s)
+        nx = torch.clamp(x_hi - x_lo, min=0)
+        ny = torch.clamp(y_hi - y_lo, min=0)
         if block:
             n = nx * ny * s * s
             per_pixel = n if per_pixel is None else torch.maximum(per_pixel,
@@ -113,6 +130,47 @@ def support_taps(c, real_dims, slab_dims, scales, block=False):
         else:
             total += float((nx * ny).sum())
     return float(per_pixel.sum()) if block else total
+
+
+def rect_sectors(slab, x_lo, x_hi, y_lo, y_hi, max_rows):
+    """32-byte sectors under the rows [y_lo, y_hi) x columns [x_lo, x_hi)
+    of each pixel's bf16 (hs, ws) plane (int64 tensors over the pixels, a
+    32-byte aligned base), summed over the pixels: rows lie at rising
+    addresses, so a sector shared by two rows counts once."""
+    hs, ws = slab
+    pix = torch.arange(x_lo.numel(), device=x_lo.device).reshape(x_lo.shape)
+    total = torch.zeros_like(pix)
+    prev_last = torch.full_like(pix, -1)
+    for r in range(max_rows):
+        y = y_lo + r
+        ok = (y < y_hi) & (x_hi > x_lo)
+        row = (pix * hs + y) * ws
+        first = torch.maximum((row + x_lo) * 2 // 32, prev_last + 1)
+        last = ((row + x_hi) * 2 - 1) // 32
+        total += torch.where(ok, torch.clamp(last - first + 1, min=0), 0)
+        prev_last = torch.where(ok, last, prev_last)
+    return int(total.sum())
+
+
+def support_sectors(c, real_dims, slab_dims, scales, block=False):
+    """:func:`support_taps` counted as DRAM moves it, in 32-byte sectors.
+    ``block``: the sectors under the largest of the pixel's level regions
+    of the level-0 plane (the same region whose elements support_taps
+    counts)."""
+    wins = [[t.long() for t in support_window(c, real, slab, s)]
+            for real, slab, s in zip(real_dims, slab_dims, scales)]
+    if not block:
+        return sum(rect_sectors(slab, *w, 8)
+                   for slab, w in zip(slab_dims, wins))
+    rects = torch.stack([torch.stack(w) * int(s)
+                         for w, s in zip(wins, scales)])    # (L, 4, pixels..)
+    area = (torch.clamp(rects[:, 1] - rects[:, 0], min=0)
+            * torch.clamp(rects[:, 3] - rects[:, 2], min=0))
+    best = area.argmax(dim=0)
+    x_lo, x_hi, y_lo, y_hi = (torch.gather(rects[:, i], 0, best[None])[0]
+                              for i in range(4))
+    return rect_sectors(slab_dims[0], x_lo, x_hi, y_lo, y_hi,
+                        8 * int(max(scales)))
 
 
 def lookup_traffic(coords, real_dims, slab_dims, out, n_act,
@@ -124,20 +182,57 @@ def lookup_traffic(coords, real_dims, slab_dims, out, n_act,
     its 8x8 bf16 tap support once (``block``: the level-0 region its
     levels share), plus its 8-byte coords; the whole output is written
     once.  Flops: the interpolation arithmetic per (active pixel-edge,
-    level, window row), plus one add per element of a block sum."""
+    level, window row), plus one add per element of a block sum.  The
+    third value counts the same reads in whole 32-byte sectors."""
     c = coords[:n_act].double()
     taps = support_taps(c, real_dims, slab_dims, scales, block)
     n_pix = c.shape[0] * c.shape[1] * c.shape[2]
-    nbytes = taps * 2 + n_pix * 8 + out.numel() * out.element_size()
+    fixed = n_pix * 8 + out.numel() * out.element_size()
     flops = n_pix * len(scales) * 7 * flops_per_tap_row
     if block:
         flops += taps
-    return nbytes, flops
+    sectors = support_sectors(c, real_dims, slab_dims, scales, block)
+    return taps * 2 + fixed, flops, sectors * 32 + fixed
 
 
 def bound(nbytes: float, flops: float):
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def library_level(vol, cl, want):
+    """One ``F.grid_sample`` call computing the one-level lookup (bilinear,
+    zeros outside, align_corners): the volume viewed as (E*H1*W1, 1, H2,
+    W2), a (E*H1*W1, 7, 7, 2) grid of the window's positions, built outside
+    the timed span.  Timed on the bf16 volume as stored; checked against
+    the plain version's result there and on an f32 copy.  The port never
+    calls it.  Returns (ms, max |err| bf16, max |err| f32)."""
+    import torch.nn.functional as F
+    E, H1, W1, H2, W2 = vol.shape
+    n = E * H1 * W1
+    offs = torch.arange(-3, 4, device=vol.device, dtype=torch.float32)
+    c = cl.reshape(n, 1, 1, 2)
+    # grid[n, a, b] = (x + a - 3, y + b - 3): output [a, b], channel a*7 + b
+    gx = (c[..., 0] + offs[None, :, None]).expand(n, 7, 7)
+    gy = (c[..., 1] + offs[None, None, :]).expand(n, 7, 7)
+    grid = torch.stack([2 * gx / (W2 - 1) - 1, 2 * gy / (H2 - 1) - 1], -1)
+    vol4 = vol.reshape(n, 1, H2, W2)
+
+    def call(v, g):
+        return F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    errs = []
+    for v, g in ((vol4, grid.to(torch.bfloat16)), (vol4.float(), grid)):
+        got = call(v, g).reshape(E, H1, W1, 49).float()
+        errs.append(float((got - want).abs().max()))
+        del got, v
+    for err, tol in zip(errs, (TOL_LIB_BF16, TOL_LIB_F32)):
+        if not math.isfinite(err) or err > tol:
+            raise RuntimeError(f"grid_sample differs from the plain lookup: "
+                               f"max |err| {err} > {tol}")
+    g16 = grid.to(torch.bfloat16)
+    return time_ms(lambda: call(vol4, g16), reps=10, warmup=2), *errs
 
 
 def kernel_phase(dev):
@@ -183,15 +278,17 @@ def kernel_phase(dev):
             slabs, coords, dims, na))
         plain_ms = time_ms(lambda: corr_lookup.lookup_pyramid_grouped4_plain(
             slabs, coords, dims, na), reps=20, warmup=2)
-        nb, fl = lookup_traffic(coords, dims, slab_dims, got,
-                                N_ACT if gated else E_ACTIVE, 45)
+        nb, fl, nb_sec = lookup_traffic(coords, dims, slab_dims, got,
+                                        N_ACT if gated else E_ACTIVE, 45)
         b_ms, b_by = bound(nb, fl)
+        bs_ms = bound(nb_sec, fl)[0]
         res[gated] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, bytes=nb)
+                          bound_by=b_by, bytes=nb, bound_sector_ms=bs_ms)
         log(f"kernel corr_lookup_grouped4 gated={gated} E={E_ACTIVE} "
             f"n_act={N_ACT if gated else E_ACTIVE} {h}x{w}: max|err| {err:.3g}"
             f" (tol {tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB)")
+            f"{b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB), in 32-byte sectors "
+            f"{bs_ms:.4f} ms ({nb_sec / 1e6:.1f} MB)")
     del slabs
     r = res[True]
     entries.append({
@@ -200,9 +297,10 @@ def kernel_phase(dev):
         "replaces": "nerf_slam_tpu/ops/corr_pallas.py:500",
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "bound_sector_ms": r["bound_sector_ms"],
         "ungated": {k: res[False][k] for k in
-                    ("err", "ms", "plain_ms", "bound_ms")}})
+                    ("err", "ms", "plain_ms", "bound_ms",
+                     "bound_sector_ms")}})
 
     # kernel #2: the motion filter's lookup from unpadded levels (E = 1)
     levels = [lv.to(torch.bfloat16).contiguous() for lv in
@@ -219,7 +317,7 @@ def kernel_phase(dev):
     plain_ms = time_ms(lambda: corr_lookup.lookup_pyramid_plain(
         levels, coords), reps=20, warmup=2)
     lv_dims = [tuple(v.shape[-2:]) for v in levels]
-    nb, fl = lookup_traffic(coords, lv_dims, lv_dims, got, 1, 49)
+    nb, fl, _ = lookup_traffic(coords, lv_dims, lv_dims, got, 1, 49)
     b_ms, b_by = bound(nb, fl)
     log(f"kernel corr_lookup_pyramid E=1 {h}x{w}: max|err| {err:.3g} (tol "
         f"{TOL_F32}) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
@@ -260,17 +358,21 @@ def kernel_phase(dev):
                                    f"{TOL_F32}")
             ms = time_ms(lambda: fn(vol, cl))
             plain_ms = time_ms(lambda: plain(vol, cl), reps=20, warmup=2)
+            lib_ms, lib_err, lib_err_f32 = library_level(vol, cl, want)
             sd = [tuple(vol.shape[-2:])]
-            nb, fl = lookup_traffic(cl, sd, sd, got, E_ACTIVE, 49,
-                                    scales=(1.0,))
+            nb, fl, _ = lookup_traffic(cl, sd, sd, got, E_ACTIVE, 49,
+                                       scales=(1.0,))
             b_ms, b_by = bound(nb, fl)
             per.append(dict(shape=list(sd[0]), err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bytes=nb,
-                            flops=fl))
+                            flops=fl, library_ms=lib_ms))
             log(f"kernel {name} E={E_ACTIVE} {h}x{wf} level {lvl} "
                 f"{sd[0][0]}x{sd[0][1]}: max|err| {err:.3g} (tol {TOL_F32}) "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}, {nb / 1e6:.1f} MB)")
+                f"({b_by}, {nb / 1e6:.1f} MB), library (grid_sample, bf16) "
+                f"{lib_ms:.4f} ms, its max|err| {lib_err:.3g} (tol "
+                f"{TOL_LIB_BF16}), on the f32 volume {lib_err_f32:.3g} (tol "
+                f"{TOL_LIB_F32})")
         del slabs
         # per launch: the mean over the four level shapes of one lookup
         b_ms, b_by = bound(sum(p["bytes"] for p in per) / 4,
@@ -282,9 +384,11 @@ def kernel_phase(dev):
             "max_abs_err": max(p["err"] for p in per),
             "ms": sum(p["ms"] for p in per) / 4,
             "plain_ms": sum(p["plain_ms"] for p in per) / 4,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sum(p["library_ms"] for p in per) / 4,
             "per_level": [{k: p[k] for k in ("shape", "ms", "plain_ms",
-                                             "bound_ms")} for p in per]})
+                                             "bound_ms", "library_ms")}
+                          for p in per]})
 
     # kernel #4: four levels from the row-padded level-0 slab alone
     vol0 = corr.build_pyramid_bf16(feats(E_ACTIVE), feats(E_ACTIVE), 1,
@@ -303,18 +407,22 @@ def kernel_phase(dev):
     plain_ms = time_ms(lambda: corr_lookup.lookup_pyramid_l0_plain(
         vol0, coords, dims), reps=3, warmup=1)
     sd0 = [tuple(vol0.shape[-2:])] * 4
-    nb, fl = lookup_traffic(coords, dims, sd0, got, E_ACTIVE, 49, block=True)
+    nb, fl, nb_sec = lookup_traffic(coords, dims, sd0, got, E_ACTIVE, 49,
+                                    block=True)
     b_ms, b_by = bound(nb, fl)
+    bs_ms = bound(nb_sec, fl)[0]
     log(f"kernel corr_lookup_l0 E={E_ACTIVE} {h}x{w} slab "
         f"{sd0[0][0]}x{sd0[0][1]}: max|err| {err:.3g} (tol {TOL_F32}) "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{nb / 1e6:.1f} MB)")
+        f"{nb / 1e6:.1f} MB), in 32-byte sectors {bs_ms:.4f} ms "
+        f"({nb_sec / 1e6:.1f} MB)")
     entries.append({
         "name": "corr_lookup_l0", "route": "cuda",
         "source": "nerf_slam_tpu_torch/ops/csrc/corr_lookup.cu",
         "replaces": "nerf_slam_tpu/ops/corr_pallas.py:282",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_sector_ms": bs_ms})
     return entries
 
 

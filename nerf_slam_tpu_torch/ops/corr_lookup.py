@@ -39,7 +39,10 @@ launches = {"corr_lookup_grouped4": 0, "corr_lookup_pyramid": 0,
             "corr_lookup_level": 0, "corr_lookup_level_grouped": 0,
             "corr_lookup_l0": 0}
 
-_MODE_HAT_BF16, _MODE_HAT_F32, _MODE_EXACT_F32 = 0, 1, 2
+# how lookup_pyramid_l0's kernel reaches a pixel's plane
+L0_BULK, L0_COOP, L0_DIRECT = 0, 1, 2
+# csrc/corr_lookup.cu: kL0Warps, kL0Stages, kL0Fixed, kL0SmemMax
+L0_WARPS, L0_STAGES, L0_FIXED, L0_SMEM_MAX = 4, 2, 4480, 232448 - 1024
 
 
 def reset_launches() -> None:
@@ -213,10 +216,12 @@ _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 # without argtypes ctypes would pass each pointer as a 32-bit int
 _ARGTYPES = {
     "corr_lookup_launch": ([_VOID] * 4 + [ctypes.POINTER(_INT)]
-                           + [_VOID] * 3 + [_INT] * 4 + [_VOID]),
+                           + [_VOID] * 2 + [_INT] * 3 + [_VOID]),
+    "corr_lookup_grouped4_launch": ([_VOID] * 4 + [ctypes.POINTER(_INT), _INT]
+                                    + [_VOID] * 3 + [_INT] * 4 + [_VOID]),
     "corr_lookup_level_launch": [_VOID] * 3 + [_INT] * 5 + [_VOID],
     "corr_lookup_l0_launch": ([_VOID, ctypes.POINTER(_INT), _VOID, _VOID]
-                              + [_INT] * 5 + [_VOID]),
+                              + [_INT] * 7 + [_VOID]),
 }
 
 
@@ -245,16 +250,41 @@ def _check_inputs(levels, coords: torch.Tensor, n_levels: int = 4):
                              f"coords {(E, H1, W1)}")
 
 
-def _launch(levels, coords, n_act, out, real_dims, mode):
-    E, H1, W1 = coords.shape[:3]
+def load_width(addr: int, numel: int) -> int:
+    """Bytes per load that the grouped4 kernel may use on one level: 4
+    (aligned words of two taps) where the level's base address is 4-byte
+    aligned and its element count even, so that the word around any
+    in-bounds tap lies inside the tensor whatever the row pitch; else 2."""
+    return 4 if addr % 4 == 0 and numel % 2 == 0 else 2
+
+
+def l0_plan(addr: int, h2p: int, w2: int) -> Tuple[int, bool]:
+    """How the level-0 kernel reaches a slab at ``addr`` with (h2p, w2)
+    planes: (mode, pair).  ``L0_BULK``: planes are 16-byte aligned runs, so
+    the copy engine stages them; ``L0_COOP``: staged by the warp with 2-byte
+    loads; ``L0_DIRECT``: a plane does not fit the shared memory and is
+    summed from device memory.  ``pair``: an even width keeps column pairs
+    4-byte aligned, so two taps come with one load."""
+    plane_bytes = h2p * w2 * 2
+    stage = (plane_bytes + 15) // 16 * 16
+
+    def fits(n_stages):
+        return L0_WARPS * n_stages * stage + L0_FIXED <= L0_SMEM_MAX
+
+    if addr % 16 == 0 and plane_bytes % 16 == 0 and fits(L0_STAGES):
+        mode = L0_BULK
+    elif fits(1):
+        mode = L0_COOP
+    else:
+        mode = L0_DIRECT
+    pair = w2 % 2 == 0 and (mode != L0_DIRECT or addr % 4 == 0)
+    return mode, pair
+
+
+def _level_dims(levels, real_dims):
     dims = ([v.shape[-2] for v in levels] + [v.shape[-1] for v in levels]
             + [d[0] for d in real_dims] + [d[1] for d in real_dims])
-    arr = (ctypes.c_int * 16)(*dims)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    err = _lib()(*[v.data_ptr() for v in levels], arr, coords.data_ptr(),
-                 None if n_act is None else n_act.data_ptr(),
-                 out.data_ptr(), E, H1, W1, mode, stream)
-    _raise_on(err)
+    return (ctypes.c_int * 16)(*dims)
 
 
 def _raise_on(err: int) -> None:
@@ -289,8 +319,13 @@ def lookup_pyramid_grouped4(levels: Sequence[torch.Tensor],
     out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
                       dtype=torch.float32 if n_act is None
                       else torch.bfloat16)
-    _launch(levels, coords, n_act, out, dims,
-            _MODE_HAT_F32 if n_act is None else _MODE_HAT_BF16)
+    vec_mask = sum((load_width(v.data_ptr(), v.numel()) == 4) << lvl
+                   for lvl, v in enumerate(levels))
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    _raise_on(_lib("corr_lookup_grouped4_launch")(
+        *[v.data_ptr() for v in levels], _level_dims(levels, dims), vec_mask,
+        coords.data_ptr(), None if n_act is None else n_act.data_ptr(),
+        out.data_ptr(), E, H1, W1, int(n_act is None), stream))
     launches["corr_lookup_grouped4"] += 1
     return out
 
@@ -305,8 +340,11 @@ def lookup_pyramid(levels: Sequence[torch.Tensor],
     E, H1, W1 = coords.shape[:3]
     out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
                       dtype=torch.float32)
-    _launch(levels, coords, None, out, [tuple(v.shape[-2:]) for v in levels],
-            _MODE_EXACT_F32)
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    _raise_on(_lib()(
+        *[v.data_ptr() for v in levels],
+        _level_dims(levels, [tuple(v.shape[-2:]) for v in levels]),
+        coords.data_ptr(), out.data_ptr(), E, H1, W1, stream))
     launches["corr_lookup_pyramid"] += 1
     return out
 
@@ -378,9 +416,10 @@ def lookup_pyramid_l0(vol0: torch.Tensor, coords: torch.Tensor,
     out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
                       dtype=torch.float32)
     arr = (ctypes.c_int * 8)(*[d[0] for d in dims], *[d[1] for d in dims])
+    mode, pair = l0_plan(vol0.data_ptr(), H2p, W2)
     stream = torch.cuda.current_stream(coords.device).cuda_stream
     _raise_on(_lib("corr_lookup_l0_launch")(
         vol0.data_ptr(), arr, coords.data_ptr(), out.data_ptr(), E, H1, W1,
-        H2p, W2, stream))
+        H2p, W2, mode, int(pair), stream))
     launches["corr_lookup_l0"] += 1
     return out

@@ -290,3 +290,61 @@ def test_level_wrappers_reject_bad_inputs():
         corr_lookup._check_inputs([vol[..., ::2]], coords, n_levels=1)
     with pytest.raises(ValueError):
         corr_lookup._check_inputs([vol], torch.zeros(2, 2, 2, 2), n_levels=1)
+
+
+def test_l0_plain_wide_range_matches_pallas():
+    """Kernel #4's plain version against the Pallas kernel on a slab
+    scaled element by element by random powers of two over 2^-12 .. 2^12
+    (outputs up to about 300).  Sums of such values are no longer exact in
+    f32, and the Pallas kernel forms a block's row sums as one MXU
+    contraction over all slab rows, in the backend's order, where the
+    plain version (like the CUDA kernel) adds row after row: a row sum may
+    land on the other side of a bf16 rounding boundary.  So: all outputs
+    within one bf16 ulp of the largest output (2^-8 relative to it), and
+    all but 1 in 1000 within the f32 rounding of four products of that
+    magnitude (one f32 ulp below 512 is 6.1e-5: atol 2.5e-4)."""
+    _, _, coords, vol0, dims = _l0_inputs()
+    rng = np.random.RandomState(11)
+    k = rng.randint(-12, 13, size=vol0.shape).astype(np.float32)
+    wide = (vol0.astype(jnp.float32) * jnp.exp2(jnp.asarray(k))
+            ).astype(jnp.bfloat16)
+    want = _f32(corr_pallas.lookup_pyramid_l0_nhwc(
+        wide, jnp.asarray(coords), dims, interpret=True))
+    got = corr_lookup.lookup_pyramid_l0(_bf16(wide),
+                                        torch.from_numpy(coords), dims)
+    err = np.abs(got.numpy() - want)
+    top = np.abs(want).max()
+    assert 64.0 < top < 512.0
+    assert err.max() <= top * 2.0 ** -8
+    assert (err > 2.5e-4).mean() < 1e-3
+
+
+@pytest.mark.parametrize("addr,h2p,w2,plan", [
+    (0, 48, 80, ("bulk", True)),          # the tracking slab
+    (256, 48, 75, ("bulk", False)),       # odd width: 2-byte loads
+    (0, 8, 9, ("bulk", False)),
+    (0, 16, 14, ("bulk", True)),
+    (2, 48, 80, ("coop", True)),          # base 2 bytes off
+    (8, 48, 80, ("coop", True)),          # base 8 bytes off
+    (0, 7, 9, ("coop", False)),           # plane of 126 bytes
+    (0, 7, 14, ("coop", True)),           # plane of 196 bytes
+    (0, 0, 0, ("bulk", True)),            # empty slab: nothing is read
+    (0, 64, 112, ("bulk", True)),         # 14,336-byte planes: 8 stages fit
+    (0, 120, 120, ("coop", True)),        # 8 stages do not fit, 4 do
+    (0, 240, 240, ("direct", True)),      # one plane a warp does not fit
+    (2, 240, 240, ("direct", False)),     # device-memory words misaligned
+    (0, 240, 241, ("direct", False))])
+def test_l0_plan_rule(addr, h2p, w2, plan):
+    """How the level-0 kernel reaches a slab, from its address and shape:
+    the copy engine needs 16-byte aligned planes of a multiple of 16
+    bytes and room for L0_WARPS x L0_STAGES of them; else the warps stage
+    one plane each with 2-byte loads; a plane that does not fit is summed
+    from device memory.  Pairs of taps come as one 4-byte load where the
+    width is even (and, from device memory, the base 4-byte aligned)."""
+    mode = {"bulk": corr_lookup.L0_BULK, "coop": corr_lookup.L0_COOP,
+            "direct": corr_lookup.L0_DIRECT}[plan[0]]
+    assert corr_lookup.l0_plan(addr, h2p, w2) == (mode, plan[1])
+    stage = (h2p * w2 * 2 + 15) // 16 * 16
+    n_stages = {"bulk": corr_lookup.L0_STAGES, "coop": 1, "direct": 0}[plan[0]]
+    assert corr_lookup.L0_WARPS * n_stages * stage + corr_lookup.L0_FIXED \
+        <= corr_lookup.L0_SMEM_MAX

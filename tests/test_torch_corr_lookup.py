@@ -142,3 +142,50 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         corr_lookup._check_inputs(levels, torch.zeros(1, 3, 2, 2))
 
+
+def _wide(level, seed):
+    """A bf16 level scaled element by element by random powers of two over
+    2^-12 .. 2^12 (exact in bf16): a changed order of summation or a
+    rounding at another place would show."""
+    rng = np.random.RandomState(seed)
+    k = rng.randint(-12, 13, size=level.shape).astype(np.float32)
+    return (level.astype(jnp.float32) * jnp.exp2(jnp.asarray(k))
+            ).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_grouped4_plain_wide_range_matches_pallas(gated):
+    """Kernel #1's plain version against the Pallas kernel on slabs of a
+    wide dynamic range (|v| up to about 2^9).  Both round the hats and the
+    y-interpolated rows to bf16 at the same places, so they differ by at
+    most the f32 rounding of the final two-term sum: one f32 ulp below
+    2^9 is 6.1e-5, hence atol 1e-4; the gated output is bf16 on both
+    sides, one bf16 ulp relative: rtol 2^-7."""
+    E, n_act = 4, 2
+    f1, f2, coords = _inputs(16, E)
+    jl = tuple(_wide(lv, 7 + i) for i, lv in enumerate(_jax_levels(f1, f2,
+                                                                   8)))
+    assert float(jnp.abs(jl[0].astype(jnp.float32)).max()) > 64.0
+    dims = corr_pallas.pyramid_dims(16, 16)
+    kw = {"n_act": jnp.int32(n_act)} if gated else {}
+    want = _f32(corr_pallas.lookup_pyramid_grouped4_nhwc(
+        jl, jnp.asarray(coords), dims, interpret=True, **kw))
+    got = _f32(corr_lookup.lookup_pyramid_grouped4(
+        _torch_levels(jl), torch.from_numpy(coords), dims,
+        torch.tensor([n_act], dtype=torch.int32) if gated else None))
+    n = n_act if gated else E
+    np.testing.assert_allclose(got[:n], want[:n], atol=1e-4,
+                               rtol=2.0 ** -7 if gated else 0)
+
+
+@pytest.mark.parametrize("addr,numel,width", [
+    (0, 48 * 80, 4), (256, 2, 4), (4, 24 * 37 * 2, 4),   # aligned, even
+    (2, 48 * 80, 2), (6, 10, 2), (1, 10, 2),             # base off a word
+    (0, 5 * 9 * 5 * 9, 2), (4, 1, 2),                    # odd element count
+    (0, 0, 4)])                                          # empty level
+def test_grouped4_load_width_rule(addr, numel, width):
+    """4-byte loads only where every aligned word around an in-bounds tap
+    lies inside the tensor: a 4-byte aligned base and an even count.  Row
+    pitches do not matter (150 or 74 bytes at feature width 75): the kernel
+    realigns by the row's parity."""
+    assert corr_lookup.load_width(addr, numel) == width

@@ -163,3 +163,134 @@ def test_kernel_wrappers_count_and_reject(dev):
             torch.tensor([1], device=dev))           # int64 n_act
     assert corr_lookup.launches == before | {
         "corr_lookup_pyramid": before["corr_lookup_pyramid"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels (#1 one warp per pixel-edge with word loads, #4
+# staged planes): shapes that decide their load widths and copy modes
+# ---------------------------------------------------------------------------
+
+def _wide(vol, seed):
+    """``vol`` scaled element by element by random powers of two over
+    2^-12 .. 2^12 (exact in bf16): sums of such values round differently
+    in another order, so an order change shows as a bit difference."""
+    rng = np.random.RandomState(seed)
+    k = torch.from_numpy(rng.randint(-12, 13, size=tuple(vol.shape))
+                         .astype(np.float32)).to(vol.device)
+    return (vol.float() * torch.exp2(k)).to(torch.bfloat16)
+
+
+def _misaligned(v):
+    """A contiguous copy of ``v`` whose first element lies 2 bytes past a
+    4-byte boundary."""
+    buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+    out = buf[1:].view(v.shape)
+    out.copy_(v)
+    assert out.data_ptr() % 4 == 2 and out.is_contiguous()
+    return out
+
+
+def _far(c):
+    """Coords whose windows lie wholly outside every level."""
+    c = c.clone()
+    c[..., 0::2, :, :] = -40.0
+    c[..., 1::2, :, :] = 1e4
+    return c
+
+
+@pytest.mark.parametrize("E,H,W,pad", [(2, 6, 75, 8), (1, 5, 9, 1),
+                                       (3, 4, 14, 8), (1, 5, 9, 8),
+                                       (2, 16, 16, 8)])
+@pytest.mark.parametrize("variant", ["plain", "wide", "misaligned", "far",
+                                     "nan"])
+def test_grouped4_kernel_edges(dev, E, H, W, pad, variant):
+    """Kernel #1 bit for bit against its plain version at widths whose row
+    pitches are only 2-byte aligned (75, 9), at an odd element count
+    (1x5x9 unpadded: 2-byte loads), from a base 2 bytes off, with windows
+    wholly out of bounds, NaN coords, E = 1, n_act of 0 and of E, and on
+    slabs of a wide dynamic range."""
+    f1, f2, c = _inputs(dev, 3 * E + W, E, H, W)
+    slabs = corr.build_pyramid_bf16(f1, f2, 4, pad_rows_to=pad)
+    if variant == "wide":
+        slabs = [_wide(v, 7 + i) for i, v in enumerate(slabs)]
+    elif variant == "misaligned":
+        slabs = [_misaligned(v) if v.numel() else v for v in slabs]
+        assert corr_lookup.load_width(slabs[0].data_ptr(),
+                                      slabs[0].numel()) == 2
+    elif variant == "far":
+        c = _far(c)
+    elif variant == "nan":
+        c[0, 1, 2] = float("nan")
+        c[-1, 2, :, 0] = float("nan")
+    dims = corr_lookup.pyramid_dims(H, W)
+    for n in (None, 0, E, max(E - 1, 0)):
+        na = None if n is None else torch.tensor([n], dtype=torch.int32,
+                                                 device=dev)
+        got = corr_lookup.lookup_pyramid_grouped4(slabs, c, dims, na)
+        want = corr_lookup.lookup_pyramid_grouped4_plain(slabs, c, dims, na)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, want), \
+            f"n_act={n}: max |err| {(got.float() - want.float()).abs().max()}"
+        if n is not None:
+            assert (got[n:] == 0).all()
+        if variant == "far":
+            assert (got == 0).all()
+
+
+@pytest.mark.parametrize("E,H,W,pad", [(2, 6, 75, 8), (1, 7, 9, 1),
+                                       (2, 12, 14, 8), (1, 7, 9, 8),
+                                       (1, 42, 80, 8)])
+@pytest.mark.parametrize("variant", ["plain", "wide", "misaligned", "far",
+                                     "poison"])
+def test_l0_kernel_edges(dev, E, H, W, pad, variant):
+    """Kernel #4 bit for bit against its plain version: odd widths (2-byte
+    loads), planes that are no multiple of 16 bytes or start 2 bytes off
+    (staged by the warp, not by the copy engine), windows wholly out of
+    bounds, poisoned padding rows, E = 1, a wide dynamic range."""
+    f1, f2, c = _inputs(dev, 5 * E + W, E, H, W)
+    vol0 = corr.build_pyramid_bf16(f1, f2, 1, pad_rows_to=pad)[0]
+    dims = corr_lookup.pyramid_dims(H, W)
+    mode, pair = corr_lookup.l0_plan(vol0.data_ptr(), *vol0.shape[-2:])
+    assert pair == (W % 2 == 0)
+    assert mode == (corr_lookup.L0_BULK if (vol0.shape[-2] * W) % 8 == 0
+                    else corr_lookup.L0_COOP)
+    if variant == "wide":
+        vol0 = _wide(vol0, 11)
+    elif variant == "misaligned":
+        vol0 = _misaligned(vol0)
+        assert corr_lookup.l0_plan(vol0.data_ptr(), *vol0.shape[-2:]) == \
+            (corr_lookup.L0_COOP, W % 2 == 0)
+    elif variant == "far":
+        c = _far(c)
+    want = corr_lookup.lookup_pyramid_l0_plain(vol0, c, dims)
+    if variant == "poison":
+        vol0 = vol0.clone()
+        vol0[..., H:, :] = 7.0
+    got = corr_lookup.lookup_pyramid_l0(vol0, c, dims)
+    torch.cuda.synchronize()
+    assert got.shape == (E, H, W, 196) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), \
+        f"max |err| {(got - want).abs().max()}"
+    if variant == "far":
+        assert (got == 0).all()
+
+
+@pytest.mark.parametrize("W2", [240, 241])
+def test_l0_kernel_plane_beyond_shared_memory(dev, W2):
+    """Kernel #4 on planes too large to stage (2 x 2 pixels of 240 x 240
+    and 240 x 241): summed straight from device memory, still bit-equal."""
+    rng = np.random.RandomState(W2)
+    vol0 = torch.from_numpy(rng.randn(1, 2, 2, 240, W2).astype(np.float32)
+                            ).to(dev).to(torch.bfloat16)
+    c = torch.from_numpy((rng.rand(1, 2, 2, 2) * 240).astype(np.float32)
+                         ).to(dev)
+    dims = corr_lookup.pyramid_dims(240, W2)
+    assert corr_lookup.l0_plan(vol0.data_ptr(), 240, W2) == \
+        (corr_lookup.L0_DIRECT, W2 % 2 == 0)
+    got = corr_lookup.lookup_pyramid_l0(vol0, c, dims)
+    torch.cuda.synchronize()
+    assert torch.equal(got, corr_lookup.lookup_pyramid_l0_plain(vol0, c,
+                                                                dims))
