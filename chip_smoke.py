@@ -5,15 +5,18 @@
 Builds the port's CUDA kernels from ``nerf_slam_tpu_torch/ops/csrc``,
 checks each against its plain PyTorch version at the tracking shapes of
 the 336x640 production cell, times it beside its bound (counted in
-elements and, for the two redesigned kernels, in 32-byte sectors) and,
-for the two one-level kernels, beside one ``F.grid_sample`` call that
-computes the same function, then drives the main path end to end: synthetic frames -> DataModule -> SlamModule
-(RaftVisualFrontend, trained weights, motion filter 2.4 px, keyframe
-rejection 4.0) -> FusionModule (PE-NeRF) -> EvalSink, as ``bench.py``
-configures it.  One sequential run gives the quality numbers (ATE-RMSE,
-PSNR after 2000 NGP iterations, as QUALITY.md measures them); one
-threaded run, with the launch counters zeroed just before it, gives
-keyframes/s and shows that the main path went through its kernels.
+elements and in 32-byte sectors) and, for the two one-level kernels,
+beside one ``F.grid_sample`` call that computes the same function, then
+drives the main path end to end: synthetic frames -> DataModule ->
+SlamModule (RaftVisualFrontend, trained weights, motion filter 2.4 px,
+keyframe rejection 4.0) -> FusionModule (PE-NeRF) -> EvalSink, as
+``bench.py`` configures it.  One sequential run gives the quality numbers
+(ATE-RMSE, PSNR after 2000 NGP iterations, as QUALITY.md measures them);
+one threaded run, with the launch counters zeroed just before it, gives
+keyframes/s and shows that the main path went through its kernels.  The
+tracker is bit-reproducible: it then runs the same frames once more,
+alone and sequentially on fresh state, and the keyframe list, every pose
+and every depth map must equal the sequential run's to the bit.
 
 Then the tracker's other lookup configurations, tracking without mapping
 (DataModule -> SlamModule -> EvalSink), same weights and thresholds, the
@@ -317,17 +320,20 @@ def kernel_phase(dev):
     plain_ms = time_ms(lambda: corr_lookup.lookup_pyramid_plain(
         levels, coords), reps=20, warmup=2)
     lv_dims = [tuple(v.shape[-2:]) for v in levels]
-    nb, fl, _ = lookup_traffic(coords, lv_dims, lv_dims, got, 1, 49)
+    nb, fl, nb_sec = lookup_traffic(coords, lv_dims, lv_dims, got, 1, 49)
     b_ms, b_by = bound(nb, fl)
+    bs_ms = bound(nb_sec, fl)[0]
     log(f"kernel corr_lookup_pyramid E=1 {h}x{w}: max|err| {err:.3g} (tol "
         f"{TOL_F32}) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
-        f"ms ({b_by}, {nb / 1e6:.2f} MB)")
+        f"ms ({b_by}, {nb / 1e6:.2f} MB), in 32-byte sectors {bs_ms:.4f} ms "
+        f"({nb_sec / 1e6:.2f} MB)")
     entries.append({
         "name": "corr_lookup_pyramid", "route": "cuda",
         "source": "nerf_slam_tpu_torch/ops/csrc/corr_lookup.cu",
         "replaces": "nerf_slam_tpu/ops/corr_pallas.py:165",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_sector_ms": bs_ms})
     del levels
 
     # kernels #3 and #5: one stored level per launch, coords in level
@@ -360,23 +366,27 @@ def kernel_phase(dev):
             plain_ms = time_ms(lambda: plain(vol, cl), reps=20, warmup=2)
             lib_ms, lib_err, lib_err_f32 = library_level(vol, cl, want)
             sd = [tuple(vol.shape[-2:])]
-            nb, fl, _ = lookup_traffic(cl, sd, sd, got, E_ACTIVE, 49,
-                                       scales=(1.0,))
+            nb, fl, nb_sec = lookup_traffic(cl, sd, sd, got, E_ACTIVE, 49,
+                                            scales=(1.0,))
             b_ms, b_by = bound(nb, fl)
+            bs_ms = bound(nb_sec, fl)[0]
             per.append(dict(shape=list(sd[0]), err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=b_ms, bytes=nb,
-                            flops=fl, library_ms=lib_ms))
+                            flops=fl, sector_bytes=nb_sec,
+                            bound_sector_ms=bs_ms, library_ms=lib_ms))
             log(f"kernel {name} E={E_ACTIVE} {h}x{wf} level {lvl} "
                 f"{sd[0][0]}x{sd[0][1]}: max|err| {err:.3g} (tol {TOL_F32}) "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}, {nb / 1e6:.1f} MB), library (grid_sample, bf16) "
-                f"{lib_ms:.4f} ms, its max|err| {lib_err:.3g} (tol "
-                f"{TOL_LIB_BF16}), on the f32 volume {lib_err_f32:.3g} (tol "
-                f"{TOL_LIB_F32})")
+                f"({b_by}, {nb / 1e6:.1f} MB), in 32-byte sectors "
+                f"{bs_ms:.4f} ms ({nb_sec / 1e6:.1f} MB), library "
+                f"(grid_sample, bf16) {lib_ms:.4f} ms, its max|err| "
+                f"{lib_err:.3g} (tol {TOL_LIB_BF16}), on the f32 volume "
+                f"{lib_err_f32:.3g} (tol {TOL_LIB_F32})")
         del slabs
         # per launch: the mean over the four level shapes of one lookup
-        b_ms, b_by = bound(sum(p["bytes"] for p in per) / 4,
-                           sum(p["flops"] for p in per) / 4)
+        fl_mean = sum(p["flops"] for p in per) / 4
+        b_ms, b_by = bound(sum(p["bytes"] for p in per) / 4, fl_mean)
+        bs_ms = bound(sum(p["sector_bytes"] for p in per) / 4, fl_mean)[0]
         entries.append({
             "name": name, "route": "cuda",
             "source": "nerf_slam_tpu_torch/ops/csrc/corr_lookup.cu",
@@ -386,8 +396,10 @@ def kernel_phase(dev):
             "plain_ms": sum(p["plain_ms"] for p in per) / 4,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": sum(p["library_ms"] for p in per) / 4,
+            "bound_sector_ms": bs_ms,
             "per_level": [{k: p[k] for k in ("shape", "ms", "plain_ms",
-                                             "bound_ms", "library_ms")}
+                                             "bound_ms", "bound_sector_ms",
+                                             "library_ms")}
                           for p in per]})
 
     # kernel #4: four levels from the row-padded level-0 slab alone
@@ -493,6 +505,18 @@ def trajectory_error(sink) -> float:
     return ate_rmse(est, gt)
 
 
+def tracker_result(frontend):
+    """What a tracking run decided and estimated: the keyframes' frame
+    timestamps, their poses and inverse depths (host copies)."""
+    n, st = frontend.kf_idx + 1, frontend.state
+    return (st.timestamps[:n].cpu(), st.cam_T_world[:n].cpu(),
+            st.idepths[:n].cpu())
+
+
+def same_bits(a, b) -> bool:
+    return all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
 def pipeline_phase(dev):
     from nerf_slam_tpu_torch.ops import corr_lookup
 
@@ -503,6 +527,7 @@ def pipeline_phase(dev):
     wall, sink = run_pipeline(frames, frontend, fusion, parallel=False)
     ate_seq = trajectory_error(sink)
     n_kf_seq = frontend.kf_idx + 1
+    first = tracker_result(frontend)
     t0 = time.perf_counter()
     fusion.fit_volume(max(0, NGP_HORIZON - fusion.iteration))
     row = fusion.evaluate_training_views(max_views=8)
@@ -526,6 +551,7 @@ def pipeline_phase(dev):
         f"keyframes of {N_FRAMES} frames in {wall:.3f} s, ATE-RMSE "
         f"{ate:.4f} m, {fusion.iteration} NGP iterations")
     log(f"launches on the main path: {launches}")
+    threaded_same = same_bits(first, tracker_result(frontend))
     missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
                if launches[k] <= 0]
     if missing:
@@ -534,6 +560,22 @@ def pipeline_phase(dev):
     for name, a in (("sequential", ate_seq), ("threaded", ate)):
         if not a <= ATE_LIMIT_M:
             raise RuntimeError(f"{name} ATE-RMSE {a:.4f} m > {ATE_LIMIT_M}")
+
+    # reproducibility: the same tracker, alone and sequential, fresh state
+    del frontend, fusion, sink
+    torch.cuda.empty_cache()
+    frontend, _, wall, _ = track_only(dev, frames, W, {})
+    again = tracker_result(frontend)
+    kf_frames = [int(round(float(t) * 30)) for t in first[0]]
+    log(f"reproducibility: tracker alone on fresh state {wall:.2f} s, "
+        f"{again[0].numel()} keyframes (first run {kf_frames}); keyframes, "
+        f"poses and depths bit-identical to the sequential run: "
+        f"{same_bits(first, again)}; the threaded run's too: "
+        f"{threaded_same}")
+    if not same_bits(first, again):
+        raise RuntimeError("the tracker is not reproducible: a second "
+                           "sequential run on fresh state changed the "
+                           "keyframes, the poses or the depths")
     return launches
 
 
@@ -559,30 +601,37 @@ PATHS = (
 )
 
 
-def path_phase(dev):
-    """Tracking without mapping under each of ``PATHS``; returns the
-    launches of each path's own kernel."""
+def track_only(dev, frames, width: int, extra: dict):
+    """One sequential tracking run without mapping (DataModule ->
+    SlamModule -> EvalSink) on a fresh tracker; the launch counters are
+    zeroed just before it.  Returns (frontend, sink, wall s, launches)."""
     from nerf_slam_tpu_torch.ops import corr_lookup
     from nerf_slam_tpu_torch.pipeline import (DataModule, EvalSink,
                                               SlamModule, connect,
                                               run_sequential)
+    frontend = build_frontend(dev, width, **extra)
+    data, slam, sink = DataModule(frames), SlamModule(frontend), EvalSink()
+    connect(data, slam, "data")
+    connect(slam, sink, "slam")
+    torch.cuda.synchronize()
+    corr_lookup.reset_launches()
+    t0 = time.perf_counter()
+    run_sequential([data, slam, sink], max_spins=20 * N_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(corr_lookup.launches)
+    if not frontend.stop or sink.last_full is None:
+        raise RuntimeError(f"tracking {extra} did not run to its end")
+    return frontend, sink, wall, launches
+
+
+def path_phase(dev):
+    """Tracking without mapping under each of ``PATHS``; returns the
+    launches of each path's own kernel."""
     counted = {}
     for tag, width, extra, kernel, idle in PATHS:
-        frames = synthetic_frames(width)
-        frontend = build_frontend(dev, width, **extra)
-        data, slam, sink = DataModule(frames), SlamModule(frontend), \
-            EvalSink()
-        connect(data, slam, "data")
-        connect(slam, sink, "slam")
-        torch.cuda.synchronize()
-        corr_lookup.reset_launches()
-        t0 = time.perf_counter()
-        run_sequential([data, slam, sink], max_spins=20 * N_FRAMES)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(corr_lookup.launches)
-        if not frontend.stop or sink.last_full is None:
-            raise RuntimeError(f"path ({tag}) did not run to its end")
+        frontend, sink, wall, launches = track_only(
+            dev, synthetic_frames(width), width, extra)
         ate = trajectory_error(sink)
         n_kf = frontend.kf_idx + 1
         log(f"path ({tag}) {extra} {H}x{width}: {n_kf} keyframes of "
@@ -605,7 +654,7 @@ def path_phase(dev):
             raise RuntimeError(f"path ({tag}) ATE-RMSE {ate:.4f} m > "
                                f"{ATE_LIMIT_M}")
         counted[kernel] = launches[kernel]
-        del frontend, data, slam, sink
+        del frontend, sink
         torch.cuda.empty_cache()
     return counted
 

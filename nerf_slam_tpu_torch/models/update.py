@@ -1,10 +1,12 @@
 """DROID update operator: ConvGRU + flow/weight heads + graph aggregation.
 
-NHWC tensors at every public method; per-view pooling is a segment sum
+NHWC tensors at every public method; per-view pooling is a segment mean
 over depth-slot indices (``seg < 0`` marks a padded edge, dropped), so the
-operator runs on padded edge sets.  ``DroidNet(dtype=...)`` holds its
-weights in that dtype (bf16 on the card, fp32 in the algorithm tests) and
-computes in it, as the JAX package's ``DroidNet(dtype=...)`` does.
+operator runs on padded edge sets; the mean sums in f32 in a fixed order
+(``ops/segment.py``), so the same inputs give the same bits.
+``DroidNet(dtype=...)`` holds its weights in that dtype (bf16 on the card,
+fp32 in the algorithm tests) and computes in it, as the JAX package's
+``DroidNet(dtype=...)`` does.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.segment import segment_mean
 from .layers import BasicEncoder, Conv, gradient_clip
 
 
@@ -24,17 +27,6 @@ def _conv_slice(conv: Conv, x: torch.Tensor, k: torch.Tensor,
     y = F.conv2d(x.to(k.dtype).permute(0, 3, 1, 2), k,
                  conv.bias if with_bias else None, 1, conv.padding)
     return y.permute(0, 2, 3, 1)
-
-
-def segment_mean(x: torch.Tensor, seg: torch.Tensor, n_seg: int
-                 ) -> torch.Tensor:
-    """Mean of x (E, ...) per segment id in [0, n_seg); ids < 0 dropped."""
-    safe = torch.where(seg < 0, n_seg, seg).long()
-    summed = torch.zeros((n_seg + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
-                         device=x.device).index_add_(0, safe, x)[:n_seg]
-    count = torch.zeros(n_seg + 1, dtype=x.dtype, device=x.device) \
-        .index_add_(0, safe, torch.ones_like(safe, dtype=x.dtype))[:n_seg]
-    return summed / torch.clamp(count, min=1.0)[:, None, None, None]
 
 
 class ConvGRU(nn.Module):

@@ -4,7 +4,7 @@
 // 7x7 window per pixel and level, sampled bilinearly from an 8x8 tap
 // support, level coordinates x0 / 2^l, window start floor(x_l) - 3,
 // out-of-bounds taps exactly 0, output channel lvl*49 + a*7 + b (a = x
-// offset, b = y offset).  Three device kernels:
+// offset, b = y offset).  Four device kernels:
 //
 // corr_lookup_grouped4_kernel replaces the TPU kernel
 //   nerf_slam_tpu/ops/corr_pallas.py  lookup_pyramid_grouped4_nhwc
@@ -24,8 +24,9 @@
 //   (_lookup_pyramid_kernel / _level_lookup_body): exact bf16 taps with
 //   fp32 bilinear weights, summed as w00*S00 + w10*S10 + w01*S01 +
 //   w11*S11 in that order, fp32 output.
-// With kNLv = 1 (one level, coords already in level units, 49 channels) it
-// replaces the two single-level TPU kernels
+// corr_level_kernel computes the same function for one level (coords
+// already in level units, 49 channels) and replaces the two single-level
+// TPU kernels
 //   nerf_slam_tpu/ops/corr_pallas.py  lookup_level_pallas_nhwc
 //   (_lookup_kernel) and lookup_level_pallas_grouped_nhwc
 //   (_lookup_kernel_grouped).
@@ -65,10 +66,12 @@
 // are transposed to channel order through shared memory and leave as one
 // contiguous run of 16-byte stores (an 8-byte head or tail where a bf16
 // pixel starts on an odd 8 bytes); gated-off slots write their zeros the
-// same way.  corr_lookup_kernel is the first design, kept for the three
-// lookups above: one block per (source row, edge), one thread per
-// (pixel, level, y offset b), scalar 2-byte loads, each support row read
-// by the two threads that share it, 7 strided stores a thread.
+// same way.  corr_level_kernel does the same with eight lanes a pixel,
+// four pixels a warp, and 16-byte loads.  corr_lookup_kernel is the first
+// design, kept for the motion filter's lookup (#2): one block per (source
+// row, edge), one thread per (pixel, level, y offset b), scalar 2-byte
+// loads, each support row read by the two threads that share it, 7
+// strided stores a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,9 +108,9 @@ __device__ __forceinline__ float hat(float base, float star) {
                           0.0f));
 }
 
-// The first design, for the exact-tap lookups.  n_act and OutT are left
-// from the time when it also served the gated lookup (every caller now
-// passes null and float): without them ptxas schedules the one-level
+// The first design, for the motion filter's lookup.  n_act and OutT are
+// left from the time when it also served the gated lookup (the caller
+// passes null and float): without them ptxas scheduled its one-level
 // instance 12% slower on the card.
 template <int kNLv, typename OutT>
 __global__ void __launch_bounds__(256)
@@ -193,6 +196,69 @@ __device__ __forceinline__ float bf_lo(uint32_t p) {      // lower address
 }
 __device__ __forceinline__ float bf_hi(uint32_t p) {
   return __uint_as_float(p & 0xffff0000u);
+}
+
+// The support row at element offset off of the tensor at base (the
+// offset of tap x0; it may be < 0): taps x0 .. x0 + 7, two to a word, the
+// lower address in the low half; taps with x0 + k outside [0, wr) are 0.
+// p must hold zeros.  kBytes, the width of each load: 2 (any tensor); 4
+// (aligned words, 5 where off is odd, realigned with a funnel shift) or 16
+// (the two aligned 16-byte chunks that the row spans, realigned by
+// selects and a funnel shift).  The caller allows a width of w bytes only
+// where the base is w-byte aligned and the element count a multiple of
+// w / 2, so that the chunk around any in-bounds tap lies inside the
+// tensor; only chunks that hold an in-bounds tap are loaded.
+template <int kBytes>
+__device__ __forceinline__ void load_support_row(const __nv_bfloat16* base,
+                                                 int64_t off, int x0, int wr,
+                                                 uint32_t (&p)[kSup / 2]) {
+  auto okc = [&](int k) {
+    return k >= 0 && k < kSup && x0 + k >= 0 && x0 + k < wr;
+  };
+  if (kBytes == 16) {
+    const int s = static_cast<int>(off & 7);   // tap 0 within chunk 0
+    const uint4* cp = reinterpret_cast<const uint4*>(base) + ((off - s) >> 3);
+    bool any0 = false, any1 = false;
+#pragma unroll
+    for (int k = 0; k < kSup; ++k) {
+      any0 |= okc(k) && k < 8 - s;
+      any1 |= okc(k) && k >= 8 - s;
+    }
+    const uint4 c0 = any0 ? __ldg(cp) : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 c1 = any1 ? __ldg(cp + 1) : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t w[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    const int j = s >> 1;                      // word of tap 0
+    uint32_t a[6], b[5];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) a[i] = (j & 2) ? w[i + 2] : w[i];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) b[i] = (j & 1) ? a[i + 1] : a[i];
+#pragma unroll
+    for (int i = 0; i < kSup / 2; ++i)
+      p[i] = (s & 1) ? __funnelshift_r(b[i], b[i + 1], 16) : b[i];
+  } else if (kBytes == 4) {
+    const int odd = static_cast<int>(off & 1);
+    const uint32_t* wp =
+        reinterpret_cast<const uint32_t*>(base) + ((off - odd) >> 1);
+    uint32_t w[kSup / 2 + 1];
+#pragma unroll
+    for (int i = 0; i <= kSup / 2; ++i)        // word i: taps 2i-odd, 2i-odd+1
+      w[i] = (okc(2 * i - odd) || okc(2 * i - odd + 1)) ? __ldg(wp + i) : 0u;
+#pragma unroll
+    for (int i = 0; i < kSup / 2; ++i)
+      p[i] = odd ? __funnelshift_r(w[i], w[i + 1], 16) : w[i];
+  } else {
+    const unsigned short* hp =
+        reinterpret_cast<const unsigned short*>(base) + off;
+#pragma unroll
+    for (int k = 0; k < kSup; ++k)
+      if (okc(k))
+        p[k / 2] |= static_cast<uint32_t>(__ldg(hp + k)) << (16 * (k & 1));
+  }
+#pragma unroll
+  for (int i = 0; i < kSup / 2; ++i)
+    p[i] &= (okc(2 * i) ? 0x0000ffffu : 0u)
+            | (okc(2 * i + 1) ? 0xffff0000u : 0u);
 }
 
 constexpr int kG4Warps = 8;                    // pixels per block, one a warp
@@ -281,35 +347,13 @@ corr_lookup_grouped4_kernel(const __grid_constant__ Levels lv, int vec_mask,
   // this lane's support row: taps x0 .. x0 + 7 of row y0, two to a word
   const int y0 = static_cast<int>(yi) + r;
   const int x0 = static_cast<int>(xi);
-  auto okc = [&](int k) {
-    return k >= 0 && k < kSup && x0 + k >= 0 && x0 + k < wr;
-  };
   uint32_t p[kSup / 2] = {0u, 0u, 0u, 0u};
   if (y0 >= 0 && y0 < hr && x0 + kSup > 0 && x0 < wr) {
-    const int64_t off = (pix * hs + y0) * ws + x0;         // may be < 0
-    if ((vec_mask >> lvl) & 1) {
-      const int odd = static_cast<int>(off & 1);
-      const uint32_t* wp =
-          reinterpret_cast<const uint32_t*>(lv.ptr[lvl]) + ((off - odd) >> 1);
-      uint32_t w[kSup / 2 + 1];
-#pragma unroll
-      for (int i = 0; i <= kSup / 2; ++i)      // word i: taps 2i-odd, 2i-odd+1
-        w[i] = (okc(2 * i - odd) || okc(2 * i - odd + 1)) ? __ldg(wp + i) : 0u;
-#pragma unroll
-      for (int i = 0; i < kSup / 2; ++i)
-        p[i] = odd ? __funnelshift_r(w[i], w[i + 1], 16) : w[i];
-    } else {
-      const unsigned short* hp =
-          reinterpret_cast<const unsigned short*>(lv.ptr[lvl]) + off;
-#pragma unroll
-      for (int k = 0; k < kSup; ++k)
-        if (okc(k))
-          p[k / 2] |= static_cast<uint32_t>(__ldg(hp + k)) << (16 * (k & 1));
-    }
-#pragma unroll
-    for (int i = 0; i < kSup / 2; ++i)
-      p[i] &= (okc(2 * i) ? 0x0000ffffu : 0u)
-              | (okc(2 * i + 1) ? 0xffff0000u : 0u);
+    const int64_t off = (pix * hs + y0) * ws + x0;
+    if ((vec_mask >> lvl) & 1)
+      load_support_row<4>(lv.ptr[lvl], off, x0, wr, p);
+    else
+      load_support_row<2>(lv.ptr[lvl], off, x0, wr, p);
   }
 
   // y pass: the row below comes from the next lane (row 7 has none and
@@ -334,6 +378,100 @@ corr_lookup_grouped4_kernel(const __grid_constant__ Levels lv, int vec_mask,
   }
   __syncwarp();
   store_run<OutT>(opix, stage, lane);
+}
+
+// ---------------------------------------------------------------------------
+// One stored level, exact taps (kernels #3 and #5).
+// ---------------------------------------------------------------------------
+// Eight lanes a pixel, lane r owning support row r, so a warp serves
+// four neighbouring pixels.  A lane loads its row's 8 taps once, as the
+// one or two aligned 16-byte chunks that the row spans (2-byte loads on a
+// slab that does not allow them), takes the row below from the next lane
+// with __shfl_down_sync (row 7 has none and writes nothing), and computes
+// the 7 outputs of window row b = r.  The warp's 4 x 49 fp32 outputs are
+// one contiguous run of 784 bytes, transposed to channel order through
+// shared memory and stored as 49 16-byte words.  What remains of its time
+// is the tap reads, one or two 32-byte sectors a row with a plane (7-8 KB
+// at level 0) between neighbouring pixels, which an H100's HBM serves at
+// about half its streaming rate, and the fp32 output.
+constexpr int kLvWarps = 8;                   // warps per block
+constexpr int kLvPix = 4;                     // pixels per warp, 8 lanes each
+constexpr int kCh1 = kRd * kRd;               // 49
+
+__global__ void __launch_bounds__(kLvWarps * 32)
+corr_level_kernel(const __nv_bfloat16* __restrict__ vol, int wide,
+                  const float2* __restrict__ coords, float* __restrict__ out,
+                  int64_t n_pix, int hs, int ws) {
+  __shared__ __align__(16) float stage_all[kLvWarps][kLvPix * kCh1];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t pix0 =
+      (static_cast<int64_t>(blockIdx.x) * kLvWarps + warp) * kLvPix;
+  if (pix0 >= n_pix) return;                   // warps never sync as a block
+  const int q = lane >> 3;                     // this lane's pixel
+  const int r = lane & 7;                      // and support row
+  const int64_t pix = pix0 + q;
+
+  // a pixel past the end keeps zeros: its lanes still take part in the
+  // shuffle, and its outputs are never stored
+  uint32_t p[kSup / 2] = {0u, 0u, 0u, 0u};
+  float w00 = 0.0f, w10 = 0.0f, w01 = 0.0f, w11 = 0.0f;
+  if (pix < n_pix) {
+    const float2 c = coords[pix];
+    const float fx = floorf(c.x);
+    const float fy = floorf(c.y);
+    const float dx = __fsub_rn(c.x, fx);
+    const float dy = __fsub_rn(c.y, fy);
+    const int xi = static_cast<int>(fminf(fmaxf(__fsub_rn(fx, 3.0f), -8.0f),
+                                          static_cast<float>(ws + 8)));
+    const int yi = static_cast<int>(fminf(fmaxf(__fsub_rn(fy, 3.0f), -8.0f),
+                                          static_cast<float>(hs + 8)));
+    const float ox = __fsub_rn(1.0f, dx);
+    const float oy = __fsub_rn(1.0f, dy);
+    w00 = __fmul_rn(ox, oy);
+    w10 = __fmul_rn(dx, oy);
+    w01 = __fmul_rn(ox, dy);
+    w11 = __fmul_rn(dx, dy);
+    const int y0 = yi + r;
+    if (y0 >= 0 && y0 < hs && xi + kSup > 0 && xi < ws) {
+      const int64_t off = (pix * hs + y0) * ws + xi;
+      if (wide)
+        load_support_row<16>(vol, off, xi, ws, p);
+      else
+        load_support_row<2>(vol, off, xi, ws, p);
+    }
+  }
+
+  float t0[kSup], t1[kSup];
+#pragma unroll
+  for (int i = 0; i < kSup / 2; ++i) {
+    const uint32_t below = __shfl_down_sync(0xffffffffu, p[i], 1);
+    t0[2 * i] = bf_lo(p[i]);
+    t0[2 * i + 1] = bf_hi(p[i]);
+    t1[2 * i] = bf_lo(below);
+    t1[2 * i + 1] = bf_hi(below);
+  }
+  float* stage = stage_all[warp];
+  if (r < kRd) {
+    float* sp = stage + q * kCh1 + r;
+#pragma unroll
+    for (int a = 0; a < kRd; ++a) {
+      float v = __fadd_rn(__fmul_rn(w00, t0[a]), __fmul_rn(w10, t0[a + 1]));
+      v = __fadd_rn(v, __fmul_rn(w01, t1[a]));
+      sp[a * kRd] = __fadd_rn(v, __fmul_rn(w11, t1[a + 1]));
+    }
+  }
+  __syncwarp();
+  float* o = out + pix0 * kCh1;                // 16-byte aligned
+  const int n_live = static_cast<int>(
+      n_pix - pix0 < kLvPix ? n_pix - pix0 : kLvPix);
+  if (n_live == kLvPix) {
+    for (int i = lane; i < kLvPix * kCh1 / 4; i += 32)
+      reinterpret_cast<float4*>(o)[i] =
+          reinterpret_cast<const float4*>(stage)[i];
+  } else {
+    for (int i = lane; i < n_live * kCh1; i += 32) o[i] = stage[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -761,19 +899,25 @@ extern "C" int corr_lookup_grouped4_launch(const void* l0, const void* l1,
 
 // One stored level (kernels lookup_level and lookup_level_grouped of
 // corr_lookup.py): vol (E, H1, W1, H2, W2) bf16, coords in LEVEL units,
-// out (E, H1, W1, 49) fp32.
+// out (E, H1, W1, 49) fp32, 16-byte aligned.  16-byte loads where the base
+// is 16-byte aligned and the element count a multiple of 8 (every slab the
+// tracker builds: rows padded to 8), else 2-byte loads.
 extern "C" int corr_lookup_level_launch(const void* vol, const void* coords,
                                         void* out, int E, int H1, int W1,
                                         int H2, int W2, void* stream) {
   if (E == 0 || H1 == 0 || W1 == 0) return 0;
-  Levels lv = {};
-  lv.ptr[0] = static_cast<const __nv_bfloat16*>(vol);
-  lv.slab_h[0] = lv.real_h[0] = H2;
-  lv.slab_w[0] = lv.real_w[0] = W2;
-  corr_lookup_kernel<1, float>
-      <<<dim3(H1, E), dim3(256), 0, static_cast<cudaStream_t>(stream)>>>(
-          lv, static_cast<const float2*>(coords), nullptr,
-          static_cast<float*>(out), H1, W1);
+  const int64_t n_pix = static_cast<int64_t>(E) * H1 * W1;
+  const int64_t per_block = kLvWarps * kLvPix;
+  const int64_t blocks = (n_pix + per_block - 1) / per_block;
+  if (blocks > 2147483647LL || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int wide = reinterpret_cast<uintptr_t>(vol) % 16 == 0
+                   && (n_pix * H2 * W2) % 8 == 0;
+  corr_level_kernel<<<static_cast<unsigned>(blocks), kLvWarps * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(vol), wide,
+      static_cast<const float2*>(coords), static_cast<float*>(out), n_pix,
+      H2, W2);
   return static_cast<int>(cudaGetLastError());
 }
 

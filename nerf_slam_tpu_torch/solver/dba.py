@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..geometry import camera, se3
+from ..ops.segment import segment_sum as seg_sum
 
 
 class DBAPlan(NamedTuple):
@@ -139,14 +140,6 @@ def plan(ii, jj, kf0: int, kf1: int, E: int, P: int, K: int,
     }, device)
 
 
-def seg_sum(A: torch.Tensor, idx: torch.Tensor, nseg: int) -> torch.Tensor:
-    """Sum the (E, ...) blocks by segment id; ids < 0 are dropped."""
-    safe = torch.where(idx < 0, nseg, idx)
-    out = torch.zeros((nseg + 1,) + tuple(A.shape[1:]), dtype=A.dtype,
-                      device=A.device)
-    return out.index_add_(0, safe, A)[:nseg]
-
-
 def kx_scatter(buf: torch.Tensor, kx: torch.Tensor, k_valid: torch.Tensor,
                new: torch.Tensor) -> torch.Tensor:
     """Out-of-place ``buf[kx[s]] = new[s]`` for VALID depth slots only
@@ -190,22 +183,19 @@ def assemble(blocks, p: DBAPlan, disps, eta, disps_sens, alpha=0.05):
     K = p.kx.shape[0]
     HW = Cii.shape[-1]
 
-    def pair_idx(a, b):
-        return torch.where((a >= 0) & (b >= 0), a * P + b, -1)
+    def pair_idx(a, b, n):
+        return torch.where((a >= 0) & (b >= 0), a * n + b, -1)
 
-    Hgrid = (seg_sum(Hii, pair_idx(p.pi, p.pi), P * P)
-             + seg_sum(Hij, pair_idx(p.pi, p.pj), P * P)
-             + seg_sum(Hij.transpose(-1, -2), pair_idx(p.pj, p.pi), P * P)
-             + seg_sum(Hjj, pair_idx(p.pj, p.pj), P * P)).reshape(P, P, 6, 6)
-    v = seg_sum(vi, p.pi, P) + seg_sum(vj, p.pj, P)
-    C = seg_sum(Cii, p.kk, K)
-    w = seg_sum(bz, p.kk, K)
-
-    def couple_idx(pp):
-        return torch.where((pp >= 0) & (p.kk >= 0), pp * K + p.kk, -1)
-
-    Ehat = (seg_sum(Eiz, couple_idx(p.pi), P * K)
-            + seg_sum(Ejz, couple_idx(p.pj), P * K))
+    # one segment sum per output, over the edge blocks of all its terms
+    Hgrid = seg_sum(torch.cat([Hii, Hij, Hij.transpose(-1, -2), Hjj]),
+                    pair_idx(torch.cat([p.pi, p.pi, p.pj, p.pj]),
+                             torch.cat([p.pi, p.pj, p.pi, p.pj]), P),
+                    P * P).reshape(P, P, 6, 6)
+    pp = torch.cat([p.pi, p.pj])
+    v = seg_sum(torch.cat([vi, vj]), pp, P)
+    C, w = seg_sum(torch.stack([Cii, bz], 1), p.kk, K).unbind(1)
+    Ehat = seg_sum(torch.cat([Eiz, Ejz]),
+                   pair_idx(pp, torch.cat([p.kk, p.kk]), K), P * K)
     d_k = disps[p.kx].reshape(K, HW)
     s_k = disps_sens.reshape(K, HW)
     m = (s_k > 0).to(C.dtype)

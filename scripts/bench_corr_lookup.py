@@ -1,4 +1,4 @@
-"""Time the two redesigned lookup kernels alone, at the tracking shapes.
+"""Time the hand-written lookup kernels alone, at the tracking shapes.
 
     python3 scripts/bench_corr_lookup.py [--repo DIR] [--tag NAME] [--no-check]
 
@@ -6,12 +6,13 @@ Builds ``nerf_slam_tpu_torch/ops/csrc/corr_lookup.cu`` of the tree at
 ``--repo`` (default: the tree this script lies in) and times, through that
 tree's own wrappers, ``lookup_pyramid_grouped4`` (gated with 36 of 48
 slots active, and ungated) and ``lookup_pyramid_l0`` at 48 slots of 42x80
-pixels: the inputs of ``chip_smoke.py``'s kernel phase; then, without a
-check, the three lookups that stay on the first design
-(``lookup_level`` at feature width 75, ``lookup_level_grouped`` at 80,
-``lookup_pyramid`` at one slot).  Each of the first two is
-compared with its plain version unless ``--no-check`` (for a copy whose
-kernel was cut on purpose to see what its loads or its stores cost).
+pixels: the inputs of ``chip_smoke.py``'s kernel phase; then the
+one-level lookups at their paths' four level shapes (``lookup_level`` at
+feature width 75, ``lookup_level_grouped`` at 80) and
+``lookup_pyramid`` at one slot.  Every kernel but the last is compared
+with its plain version, bit for bit, unless ``--no-check`` (for a copy
+whose kernel was cut on purpose to see what its loads or its stores
+cost).
 
 One process times one tree, so two versions are compared by running the
 script once per tree inside one call on one card, in turns.  Prints the
@@ -113,8 +114,8 @@ def main() -> int:
         max(3, args.reps // 3), 2)
     del vol0
 
-    # the three lookups that stay on the first design: #3 at feature width
-    # 75, #5 at 80 (per level, then the mean), #2 at E = 1
+    # the one-level lookups: #3 at feature width 75, #5 at 80 (per level,
+    # then the mean); then #2 at E = 1
     for key, fn, wf in (("level", corr_lookup.lookup_level, 75),
                         ("level_grouped", corr_lookup.lookup_level_grouped,
                          W)):
@@ -124,11 +125,16 @@ def main() -> int:
         del f1, f2
         c = camera.coords_grid(H, wf, device=dev)[None] + 3.0 * torch.randn(
             (E, H, wf, 2), generator=g, device=dev)
-        ms = []
+        ms, equal = [], True
         for lvl, vol in enumerate(slabs):
             cl = (c / 2 ** lvl).contiguous()
+            if not args.no_check:
+                equal &= bool(torch.equal(
+                    fn(vol, cl), corr_lookup.lookup_level_plain(vol, cl)))
             ms.append(time_ms(lambda: fn(vol, cl), args.reps))
         res[key + "_ms"] = ms + [sum(ms) / len(ms)]
+        if not args.no_check:
+            res[key + "_equal"] = equal
         del slabs
     levels = [lv.to(torch.bfloat16).contiguous() for lv in corr.build_pyramid(
         corr.build_volume(feats()[:1], feats()[:1]))]

@@ -8,11 +8,16 @@ so they also run where JAX is absent:
 (``--noconftest``: tests/conftest.py configures JAX for the CPU tests.)
 ``chip_smoke.py`` repeats the comparisons at the main path's shapes.
 """
+import copy
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from nerf_slam_tpu_torch.models import update
 from nerf_slam_tpu_torch.ops import corr, corr_lookup
+from nerf_slam_tpu_torch.solver import dba
 
 pytestmark = pytest.mark.cuda
 
@@ -294,3 +299,137 @@ def test_l0_kernel_plane_beyond_shared_memory(dev, W2):
     torch.cuda.synchronize()
     assert torch.equal(got, corr_lookup.lookup_pyramid_l0_plain(vol0, c,
                                                                 dims))
+
+
+@pytest.mark.parametrize("E,H,W,pad", [(2, 6, 75, 8), (1, 5, 9, 1),
+                                       (3, 4, 14, 8), (1, 5, 9, 8),
+                                       (2, 16, 16, 8), (1, 7, 9, 1),
+                                       (2, 12, 14, 8), (1, 42, 80, 8)])
+@pytest.mark.parametrize("variant", ["plain", "wide", "misaligned", "far",
+                                     "nan"])
+def test_level_kernel_edges(dev, E, H, W, pad, variant):
+    """Kernels #3 and #5 (one device kernel, eight lanes a pixel) bit for
+    bit against lookup_level_plain at every level of the shapes the
+    grouped4 and level-0 tests use: odd widths (row pitches only 2-byte
+    aligned), odd element counts and bases 2 bytes off (2-byte loads),
+    planes smaller than the window, row-padded and unpadded slabs, pixel
+    counts that leave a warp part-filled, E = 1, windows wholly out of
+    bounds, NaN coords (NaN out, as in the plain version) and a wide
+    dynamic range."""
+    f1, f2, c = _inputs(dev, 7 * E + W, E, H, W)
+    if variant == "far":
+        c = _far(c)
+    elif variant == "nan":
+        c[0, 1, 2] = float("nan")
+        c[-1, 2, :, 0] = float("nan")
+    slabs = corr.build_pyramid_bf16(f1, f2, 4, pad_rows_to=pad)
+    for lvl, vol in enumerate(slabs):
+        if vol.numel() == 0:
+            continue                # no taps: the wrapper launches nothing
+        if variant == "wide":
+            vol = _wide(vol, 13 + lvl)
+        elif variant == "misaligned":
+            vol = _misaligned(vol)
+        cl = (c / 2 ** lvl).contiguous()
+        want = corr_lookup.lookup_level_plain(vol, cl)
+        nan = torch.isnan(want)
+        assert bool(nan.any()) == (variant == "nan")
+        for fn in (corr_lookup.lookup_level,
+                   corr_lookup.lookup_level_grouped):
+            got = fn(vol, cl)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == torch.float32
+            assert torch.equal(torch.isnan(got), nan)
+            assert torch.equal(got[~nan], want[~nan]), \
+                f"level {lvl}: max |err| {(got - want)[~nan].abs().max()}"
+            if variant == "far":
+                assert (got == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# bit-reproducibility: the segment sums and a whole update round
+# ---------------------------------------------------------------------------
+
+def test_segment_sums_repeat_bit_for_bit(dev):
+    """The GRU's per-keyframe mean (bf16, 48 edges over 6 keyframes at the
+    336x640 feature shape) and the coupling assembly's sum (f32, 96 edges
+    over 672 segments) give the same bits on 20 calls, with heavily
+    repeated ids; both within their rounding of the f64 sums.
+    ``index_add_``, which adds with atomics, does not repeat its bits."""
+    rng = np.random.RandomState(0)
+    ids_m = rng.randint(-1, 6, size=48)
+    x_m = torch.from_numpy(rng.randn(48, 42, 80, 128).astype(np.float32))
+    ids_e = rng.randint(-1, 40, size=96)
+    x_e = torch.from_numpy(rng.randn(96, 6, 3360).astype(np.float32))
+    xm, xe = x_m.to(dev).to(torch.bfloat16), x_e.to(dev)
+    im, ie = torch.from_numpy(ids_m).to(dev), torch.from_numpy(ids_e).to(dev)
+    first_m = update.segment_mean(xm, im, 28)
+    first_e = dba.seg_sum(xe, ie, 672)
+    for _ in range(20):
+        assert torch.equal(update.segment_mean(xm, im, 28), first_m)
+        assert torch.equal(dba.seg_sum(xe, ie, 672), first_e)
+    for x, ids, n, got, mean in ((xm.cpu().double(), ids_m, 28, first_m,
+                                  True),
+                                 (x_e.double(), ids_e, 672, first_e, False)):
+        want = torch.zeros((n,) + tuple(x.shape[1:]), dtype=torch.float64)
+        cnt = torch.zeros(n, dtype=torch.float64)
+        for e, s in enumerate(ids):
+            if s >= 0:
+                want[s] += x[e]
+                cnt[s] += 1
+        scale = torch.zeros_like(want)
+        for e, s in enumerate(ids):
+            if s >= 0:
+                scale[s] += x[e].abs()
+        if mean:
+            d = cnt.clamp(min=1).reshape(-1, *[1] * (x.dim() - 1))
+            want, scale = want / d, scale / d
+        u = 2.0 ** -8 if mean else 0.0          # one bf16 rounding
+        err = (got.cpu().double() - want).abs()
+        assert (err <= u * want.abs() + 1e-6 * scale + 1e-30).all()
+
+
+WEIGHTS = os.path.join(os.path.dirname(__file__), "..",
+                       "weights_synthetic.npz")
+
+
+def test_update_round_repeats_bit_for_bit(dev):
+    """One whole RaftVisualFrontend.update round (GRU iterations, DBA,
+    export tail) from the same state gives the same bits on 20 calls: the
+    trained weights in bf16 on 96x128 frames, several edges per keyframe
+    (repeated segment ids in the GRU's mean and the DBA's sums)."""
+    from nerf_slam_tpu_torch.datasets import (SyntheticConfig,
+                                              SyntheticDataset)
+    from nerf_slam_tpu_torch.models import DroidNet, load_flax_weights
+    from nerf_slam_tpu_torch.tracking import (FrontendConfig,
+                                              RaftVisualFrontend)
+    from nerf_slam_tpu_torch.utils.checkpoint import load_arrays
+
+    flat, meta = load_arrays(WEIGHTS)
+    net = load_flax_weights(DroidNet(dtype=torch.bfloat16), flat)
+    H, W = 96, 128
+    cfg = FrontendConfig(buffer=12, e_active=24, e_inactive=16, p_window=12,
+                         k_depth=14, keyframe_warmup=4, max_factors=20,
+                         motion_filter_thresh=-1.0, keyframe_thresh=-1.0,
+                         damping_scale=float(meta["damping_scale"]),
+                         damping_offset=float(meta["damping_offset"]))
+    fe = RaftVisualFrontend(net, cfg, (H, W), device=dev)
+    ds = SyntheticDataset(SyntheticConfig(n_frames=30, height=H, width=W))
+    for k in range(7):
+        fe(k, ds[k])
+    assert fe.is_initialized and fe.graph.n_edges > 6
+    assert len(set(fe.graph.ii.tolist())) < fe.graph.n_edges
+    snap = copy.deepcopy({k: v for k, v in vars(fe).items() if k != "net"})
+    runs = []
+    for _ in range(20):
+        vars(fe).update(copy.deepcopy(snap))
+        assert fe.update(n_iters=2) is True
+        st = fe.state
+        runs.append([t.clone() for t in (
+            st.cam_T_world, st.idepths, st.damping, st.idepths_up,
+            st.pose_cov, st.idepths_cov, fe.edges.hidden, fe.edges.flow)])
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t.float()).all() for t in runs[0])
+    for r in runs[1:]:
+        for a, b in zip(runs[0], r):
+            assert torch.equal(a, b)
