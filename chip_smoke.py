@@ -25,6 +25,18 @@ Schur solve and global BA at the end, (b) ``corr_impl="pallas_grouped"``,
 (c) the same on 336x600 frames, whose feature width 75 is no multiple of
 16, where the lookup goes to the single-level kernel.
 
+Then the map backends: (d) Sigma-TSDF fidelity, as
+``scripts/tsdf_fidelity.py`` measures it: 20 ground-truth-depth frames of
+the synthetic room with objects at 240x320 fused into the default 192^3
+volume, the marching-tetrahedra mesh scored against the analytic surface,
+ray-cast PSNR and depth L1, each held to QUALITY.md's default row; (e)
+the ``slam_demo`` CLI with ``--fusion sigma --eval`` on the production
+frames and weights, sequentially (ATE-RMSE at most 0.25 m); (f) the
+hash-grid NeRF (default ``HashGridConfig``) fitted for 2000 iterations at
+4096 rays on the sequential run's keyframes, beside the PE field's fit
+on the same keyframes: the loss must stay finite and the PSNR of the last
+evaluation must exceed the first's.
+
 Output, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the pipeline and path lines, the ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -61,8 +73,17 @@ SLEEP_CYCLES = 40_000_000   # about 20 ms of device sleep ahead of a timing
 # kernel vs plain version: both evaluate the same f32 operations in the
 # same order with round-to-nearest and no fused multiply-add, so they
 # should agree bit for bit; the limits allow one ulp of the output type at
-# the volumes' magnitude (|v| < 4): bf16 1.6e-2, f32 1e-5
+# the volumes' magnitude (|v| < 4): bf16 1.6e-2, f32 1e-5.  #2 is held to
+# the bit (max |err| 0).
 TOL_BF16, TOL_F32 = 1.6e-2, 1e-5
+
+# (d): QUALITY.md's TSDF default row (scripts/tsdf_fidelity.py, 192^3,
+# 20 GT-depth frames at 240x320) and the bands around it
+TSDF_FRAMES, TSDF_H, TSDF_W = 20, 240, 320
+TSDF_REF = {"mesh_err_mean_cm": (0.237, 0.02), "psnr_db": (31.15, 0.5),
+            "depth_l1_cm": (0.71, 0.1)}
+# (f): the hash grid's fit, evaluated every HASH_EVAL_EVERY iterations
+HASH_EVAL_EVERY = 500
 # the library yardstick of the one-level kernels, F.grid_sample, takes its
 # grid in the volume's type: in bf16 the sampling positions themselves are
 # rounded (to 2^-8 of the half width, up to 0.08 px at width 80, on volumes
@@ -313,9 +334,9 @@ def kernel_phase(dev):
     want = corr_lookup.lookup_pyramid_plain(levels, coords)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if not math.isfinite(err) or err > TOL_F32:
+    if not torch.equal(got, want):
         raise RuntimeError(f"pyramid lookup differs from its plain version: "
-                           f"max |err| {err} > {TOL_F32}")
+                           f"max |err| {err}, not bit-equal")
     ms = time_ms(lambda: corr_lookup.lookup_pyramid(levels, coords))
     plain_ms = time_ms(lambda: corr_lookup.lookup_pyramid_plain(
         levels, coords), reps=20, warmup=2)
@@ -323,8 +344,8 @@ def kernel_phase(dev):
     nb, fl, nb_sec = lookup_traffic(coords, lv_dims, lv_dims, got, 1, 49)
     b_ms, b_by = bound(nb, fl)
     bs_ms = bound(nb_sec, fl)[0]
-    log(f"kernel corr_lookup_pyramid E=1 {h}x{w}: max|err| {err:.3g} (tol "
-        f"{TOL_F32}) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+    log(f"kernel corr_lookup_pyramid E=1 {h}x{w}: max|err| {err:.3g} (bit "
+        f"for bit) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
         f"ms ({b_by}, {nb / 1e6:.2f} MB), in 32-byte sectors {bs_ms:.4f} ms "
         f"({nb_sec / 1e6:.2f} MB)")
     entries.append({
@@ -528,18 +549,26 @@ def pipeline_phase(dev):
     ate_seq = trajectory_error(sink)
     n_kf_seq = frontend.kf_idx + 1
     first = tracker_result(frontend)
+    train_set = fusion.train_set          # the keyframes, for phase (f)
+    pe_iters = max(0, NGP_HORIZON - fusion.iteration)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fusion.fit_volume(max(0, NGP_HORIZON - fusion.iteration))
-    row = fusion.evaluate_training_views(max_views=8)
+    fusion.fit_volume(pe_iters)
+    torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    pe_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = fusion.evaluate_training_views(max_views=8)
     if row is None or not math.isfinite(row["psnr"]):
         raise RuntimeError(f"bad evaluation row {row}")
+    pe = dict(psnr=row["psnr"], steps_s=pe_iters / fit_s, peak_gib=pe_peak)
     log(f"pipeline sequential (untimed): {n_kf_seq} keyframes of "
         f"{N_FRAMES} frames in {wall:.2f} s, ATE-RMSE {ate_seq:.4f} m")
     log(f"quality: PSNR {row['psnr']:.2f} dB, depth L1 "
         f"{row['depth_l1_cm']:.2f} cm (scale-aligned "
         f"{row['depth_l1_aligned_cm']:.2f} cm) after {fusion.iteration} NGP "
-        f"iterations, 8 training views (fit+eval {fit_s:.1f} s)")
+        f"iterations, 8 training views; the last {pe_iters} PE iterations "
+        f"{pe['steps_s']:.1f} steps/s, peak memory {pe_peak:.2f} GiB")
 
     # speed: the threaded run bench.py times; counters zeroed just before
     corr_lookup.reset_launches()
@@ -576,7 +605,7 @@ def pipeline_phase(dev):
         raise RuntimeError("the tracker is not reproducible: a second "
                            "sequential run on fresh state changed the "
                            "keyframes, the poses or the depths")
-    return launches
+    return launches, train_set, pe
 
 
 def synthetic_frames(width: int):
@@ -659,6 +688,151 @@ def path_phase(dev):
     return counted
 
 
+def _box_shell(pts, lo, hi):
+    """Unsigned distance to an axis-aligned box shell."""
+    q = np.maximum(lo - pts, pts - hi)
+    outside = np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+    inside = np.minimum(q.max(axis=-1), 0.0)
+    return np.abs(outside + inside)
+
+
+def scene_surface_distance(pts, ds):
+    """Exact unsigned distance from points to the synthetic room's
+    surface: its box shell and every interior sphere and box
+    (scripts/tsdf_fidelity.py's measure)."""
+    c = ds.cfg
+    d = _box_shell(pts, np.array([-c.room_half, -c.room_half, 0.0]),
+                   np.array([c.room_half, c.room_half, c.room_height]))
+    for ob in ds.objects:
+        if ob["type"] == "sphere":
+            do = np.abs(np.linalg.norm(pts - np.asarray(ob["c"]), axis=-1)
+                        - ob["r"])
+        else:
+            do = _box_shell(pts, np.asarray(ob["lo"]), np.asarray(ob["hi"]))
+        d = np.minimum(d, do)
+    return d
+
+
+def tsdf_phase(dev):
+    """(d) GT-depth TSDF fusion at the default preset, scored as
+    QUALITY.md's default row was."""
+    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
+    from nerf_slam_tpu_torch.fusion import TsdfFusion, TsdfFusionConfig
+
+    cfg = TsdfFusionConfig()
+    fusion = TsdfFusion(cfg, device=dev)
+    ds = SyntheticDataset(SyntheticConfig(
+        n_frames=TSDF_FRAMES, height=TSDF_H, width=TSDF_W, seed=21,
+        n_objects=8))
+    views = [ds[k] for k in range(TSDF_FRAMES)]
+    cov = np.full((TSDF_H, TSDF_W), 1e-4, np.float32)  # GT depth: tiny sigma
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for p in views:
+        fusion.integrate_frame(np.linalg.inv(p["poses"]), p["intrinsics"],
+                               p["depths"], cov, p["images"], record=False)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sel = views[::7]
+    t0 = time.perf_counter()
+    ev = fusion.evaluate([p["images"] for p in sel], [p["depths"] for p in sel],
+                         [p["poses"] for p in sel],
+                         [p["intrinsics"] for p in sel], max_views=3)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verts, faces, _ = fusion.extract_mesh(weight_thresh=1.0)
+    mesh_s = time.perf_counter() - t0
+    if verts.shape[0] == 0:
+        raise RuntimeError("TSDF fidelity: the mesh is empty")
+    err = scene_surface_distance(verts, ds)
+    got = {"mesh_err_mean_cm": float(err.mean()) * 100,
+           "psnr_db": ev["psnr"], "depth_l1_cm": ev["depth_l1_cm"]}
+    log(f"(d) TSDF fidelity {cfg.grid_size}^3, {TSDF_FRAMES} GT-depth frames "
+        f"at {TSDF_H}x{TSDF_W}: mesh error mean "
+        f"{got['mesh_err_mean_cm']:.4f} cm, p95 "
+        f"{float(np.percentile(err, 95)) * 100:.4f} cm, {verts.shape[0]} "
+        f"vertices, {faces.shape[0]} faces; PSNR {got['psnr_db']:.3f} dB, "
+        f"depth L1 {got['depth_l1_cm']:.4f} cm; integration {fuse_s:.3f} s "
+        f"({1e3 * fuse_s / TSDF_FRAMES:.2f} ms a frame, host clock), "
+        f"ray-cast eval {eval_s:.2f} s, mesh {mesh_s:.2f} s (host numpy), "
+        f"peak memory {peak:.2f} GiB")
+    for key, (ref, band) in TSDF_REF.items():
+        if not abs(got[key] - ref) <= band:
+            raise RuntimeError(f"TSDF fidelity: {key} {got[key]:.4f} outside "
+                               f"QUALITY.md's {ref} +- {band}")
+
+
+def cli_phase(dev):
+    """(e) The slam_demo CLI, --fusion sigma --eval, on the production
+    frames and weights, sequentially; counters zeroed just before it."""
+    from nerf_slam_tpu_torch.cli import slam_demo
+    from nerf_slam_tpu_torch.ops import corr_lookup
+
+    args = slam_demo.parse_args([
+        "--weights", os.path.join(ROOT, "weights_synthetic.npz"),
+        "--height", str(H), "--width", str(W), "--n_frames", str(N_FRAMES),
+        "--buffer", str(BUFFER), "--fusion", "sigma", "--eval",
+        "--out", os.devnull, "--device", dev.type])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    corr_lookup.reset_launches()
+    res = slam_demo.run(args)
+    launches = dict(corr_lookup.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"(e) CLI --fusion sigma --eval {H}x{W}: {res['n_keyframes']} "
+        f"keyframes of {N_FRAMES} frames, {res['kf_per_s']:.4f} keyframes/s "
+        f"({res['wall_s']:.2f} s), ATE-RMSE {res.get('ate_rmse_m', math.nan):.4f}"
+        f" m, TSDF eval row psnr {res.get('fusion_psnr')} depth_l1_cm "
+        f"{res.get('fusion_depth_l1_cm')}, peak memory {peak:.2f} GiB, "
+        f"launches {launches}")
+    missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
+               if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"(e) kernels not launched: {missing}")
+    if not res.get("ate_rmse_m", math.inf) <= ATE_LIMIT_M:
+        raise RuntimeError(f"(e) ATE-RMSE {res.get('ate_rmse_m')} m > "
+                           f"{ATE_LIMIT_M}")
+
+
+def hash_phase(dev, train_set, pe):
+    """(f) The hash-grid NeRF fitted on the sequential run's keyframes,
+    NGP_HORIZON iterations at 4096 rays, evaluated every HASH_EVAL_EVERY;
+    beside the PE field's fit on the same keyframes (``pe``)."""
+    from nerf_slam_tpu_torch.fusion import (NerfFusion, NerfFusionConfig,
+                                            NGPConfig)
+
+    fusion = NerfFusion(NerfFusionConfig(
+        buffer=BUFFER, height=H, width=W, batch_rays=4096,
+        ngp=NGPConfig(encoding="hash")), seed=SEED, device=dev)
+    fusion.train_set = train_set
+    fusion.has_data = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fit_s, losses, rows = 0.0, [], []
+    for _ in range(NGP_HORIZON // HASH_EVAL_EVERY):
+        t0 = time.perf_counter()
+        loss = fusion.fit_volume(HASH_EVAL_EVERY)
+        torch.cuda.synchronize()
+        fit_s += time.perf_counter() - t0
+        losses.append(float(loss))
+        rows.append(fusion.evaluate_training_views(max_views=8))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    psnrs = [r["psnr"] for r in rows]
+    log(f"(f) hash-grid NeRF {H}x{W}, {int(train_set.valid.sum())} keyframes:"
+        f" PSNR {', '.join(f'{p:.2f}' for p in psnrs)} dB at iterations "
+        f"{[r['iteration'] for r in rows]}, loss {losses}, "
+        f"{NGP_HORIZON / fit_s:.1f} steps/s, peak memory {peak:.2f} GiB; "
+        f"PE field on the same keyframes: PSNR {pe['psnr']:.2f} dB after "
+        f"{NGP_HORIZON} iterations, {pe['steps_s']:.1f} steps/s, peak "
+        f"memory {pe['peak_gib']:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"(f) hash-grid loss not finite: {losses}")
+    if not psnrs[-1] > psnrs[0]:
+        raise RuntimeError(f"(f) hash-grid PSNR did not rise: {psnrs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -693,9 +867,14 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     entries = kernel_phase(dev)
-    launches = pipeline_phase(dev)
+    launches, train_set, pe = pipeline_phase(dev)
     torch.cuda.empty_cache()
     launches.update(path_phase(dev))
+    tsdf_phase(dev)
+    torch.cuda.empty_cache()
+    cli_phase(dev)
+    torch.cuda.empty_cache()
+    hash_phase(dev, train_set, pe)
     for e in entries:
         e["launches"] = launches[e["name"]]
     log(f"chip_smoke: all phases passed in "

@@ -3,10 +3,14 @@ packets (PyTorch).
 
 NeRF-SLAM's mapping module (fusion/nerf_fusion.py there): a preallocated
 training set that SLAM packets grow and update, depth supervision
-weighted by the SLAM depth variance (the JAX package's
-``mask_type="ours"``), sRGB->linear targets, per-spin
-training (``fit_volume``) with Adam, and evaluation at the training views
-(PSNR, depth L1), rendered with occupancy-bounded samples.
+weighted by the SLAM depth variance (``mask_type="ours"``; "raw",
+"ours_w_thresh" and "no_depth" are the JAX package's ablations),
+sRGB->linear targets, per-spin training (``fit_volume``) with Adam, on
+the field ``NGPConfig.encoding`` names (the PE MLP or the hash grid), and
+evaluation at the training views (PSNR, depth L1; a results row every
+``eval_every`` iterations), rendered with occupancy-bounded samples;
+free-view renders and a density mesh.  Mapping-time pose refinement
+(``optimize_extrinsics``) is not ported yet (ROADMAP.md §1.12).
 
 Scene coordinates are normalized into the unit cube by
 ``(world * scale + offset)``; a ray's parameter t equals the camera
@@ -27,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry import se3
-from .ngp import (NGPConfig, PEField, draw_ray_samples, occupancy_grid,
-                  ray_occ_interval, render_rays, sample_along_rays,
+from ..utils.evaluation import to_numpy
+from .ngp import (NGPConfig, draw_ray_samples, init_ngp, occupancy_grid,
+                  query, ray_occ_interval, render_rays, sample_along_rays,
                   sample_in_interval)
 
 
@@ -47,16 +52,26 @@ def mse2psnr(mse) -> float:
     return float(-10.0 * np.log10(np.maximum(mse, 1e-12)))
 
 
+# depth-supervision masking: 1/sigma^2-weighted depth ("ours"), unweighted
+# ("raw"), sigma above a threshold masked ("ours_w_thresh"), none
+MASK_TYPES = ("ours", "raw", "ours_w_thresh", "no_depth")
+
+
 @dataclass
 class NerfFusionConfig:
     buffer: int = 64                  # max training images
     height: int = 120                 # fusion resolution (= the packets')
     width: int = 160
     batch_rays: int = 4096
+    mask_type: str = "ours"           # ours | raw | ours_w_thresh | no_depth
     iters_per_spin: int = 10
     ngp: NGPConfig = field(default_factory=NGPConfig)
     scale: float = 0.25               # unit = world * scale + offset
     offset: tuple = (0.5, 0.5, 0.5)
+    eval_every: int = 0               # iterations between results rows
+                                      # (0: none; the CLI's --eval sets 200)
+    eval_views: int = 8               # views per results row
+    optimize_extrinsics: bool = False  # not ported (ROADMAP.md §1.12)
     render_rows_per_chunk: int = 40
     occ_res: int = 64
     occ_thresh: float = 4.0
@@ -89,6 +104,12 @@ class NerfFusion:
 
     def __init__(self, cfg: NerfFusionConfig, seed: int = 0,
                  device="cuda"):
+        if cfg.optimize_extrinsics:
+            raise NotImplementedError(
+                "optimize_extrinsics (mapping-time pose refinement) is not "
+                "ported yet: ROADMAP.md §1.12")
+        if cfg.mask_type not in MASK_TYPES:
+            raise ValueError(f"unknown mask_type {cfg.mask_type!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self._seed = seed
@@ -98,10 +119,10 @@ class NerfFusion:
         """Fresh field, optimizer, training set and generators."""
         cfg, dev = self.cfg, self.device
         init_gen = torch.Generator().manual_seed(self._seed)
-        self.field = PEField(cfg.ngp, generator=init_gen).to(dev)
-        self.opt = torch.optim.Adam(self.field.parameters(),
-                                    lr=cfg.ngp.pe_lr, betas=(0.9, 0.99),
-                                    eps=1e-15)
+        self.field = init_ngp(cfg.ngp, generator=init_gen).to(dev)
+        lr = cfg.ngp.pe_lr if cfg.ngp.encoding == "pe" else cfg.ngp.lr
+        self.opt = torch.optim.Adam(self.field.parameters(), lr=lr,
+                                    betas=(0.9, 0.99), eps=1e-15)
         N, H, W = cfg.buffer, cfg.height, cfg.width
 
         def full(shape, v):
@@ -116,6 +137,7 @@ class NerfFusion:
         self.gen = torch.Generator(device=dev).manual_seed(self._seed + 1)
         self.iteration = 0
         self.results = []
+        self.sigma_thresh = None   # absolute threshold for ours_w_thresh
         self.has_data = False
         self._t0 = None
         self._occ_mask = None
@@ -159,6 +181,16 @@ class NerfFusion:
         c2w = se3.matrix(se3.inv(poses7.float()))
         idepths_up = idepths_up.float()
         depths_cov_up = depths_cov_up.float()
+        # depth-uncertainty masking
+        if cfg.mask_type == "raw":
+            depths_cov_up = torch.ones_like(depths_cov_up)
+        elif cfg.mask_type == "ours_w_thresh":
+            sig = torch.sqrt(torch.clamp(depths_cov_up, min=0))
+            thr = (torch.quantile(sig.reshape(-1), 0.5)
+                   if self.sigma_thresh is None else self.sigma_thresh)
+            idepths_up = torch.where(sig > thr, -1.0, idepths_up)
+        elif cfg.mask_type == "no_depth":
+            idepths_up = -torch.ones_like(idepths_up)
         depths = torch.where(idepths_up > 1e-6,
                              1.0 / torch.clamp(idepths_up, min=1e-6), -1.0)
         s = cfg.scale
@@ -178,6 +210,12 @@ class NerfFusion:
         self.has_data = True
         if self._t0 is None:
             self._t0 = time.time()
+
+    def set_sigma_thresh(self, value: Optional[float]):
+        """An ABSOLUTE depth-sigma threshold for ``mask_type=
+        "ours_w_thresh"`` (None restores the median of each packet);
+        applies to packets fused from now on."""
+        self.sigma_thresh = None if value is None else float(value)
 
     def fuse(self, packet: Optional[Dict[str, Any]]) -> bool:
         """Consume one SLAM viz packet; True at end of sequence.  Padded
@@ -252,15 +290,19 @@ class NerfFusion:
         return loss.detach()
 
     def fit_volume(self, iters: Optional[int] = None):
-        """``iters`` train steps.  Returns the last loss (a device
+        """``iters`` train steps, with a results row every
+        ``cfg.eval_every`` iterations.  Returns the last loss (a device
         scalar)."""
         iters = iters or self.cfg.iters_per_spin
         if not self.has_data:
             return 0.0
+        every = self.cfg.eval_every
         loss = 0.0
         for _ in range(int(iters)):
             loss = self.train_step()
             self.iteration += 1
+            if every > 0 and self.iteration % every == 0:
+                self.evaluate_training_views(max_views=self.cfg.eval_views)
         return loss
 
     # ------------------------------------------------------------------
@@ -311,20 +353,39 @@ class NerfFusion:
         return rgb.reshape(n, W, 3), depth.reshape(n, W), acc.reshape(n, W)
 
     @torch.no_grad()
-    def render_training_view(self, i: int):
-        """Render training view i in the map's own frame.  Returns (sRGB
+    def _render_normalized(self, c2w: torch.Tensor, intr: torch.Tensor):
+        """Render at a pose in the normalized map frame.  Returns (sRGB
         rgb (H, W, 3) in [0, 1], depth (H, W) normalized units)."""
-        cfg, ts = self.cfg, self.train_set
+        cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(0)
         rgb, depth = [], []
         for y0 in range(0, cfg.height, cfg.render_rows_per_chunk):
             ys = torch.arange(y0, min(y0 + cfg.render_rows_per_chunk,
                                       cfg.height), device=self.device)
-            r, d, _ = self.render_rows(ts.c2w[i], ts.intrinsics[i], ys, gen)
+            r, d, _ = self.render_rows(c2w, intr, ys, gen)
             rgb.append(r)
             depth.append(d)
         rgb = torch.clamp(linear_to_srgb(torch.cat(rgb)), 0.0, 1.0)
         return rgb, torch.cat(depth)
+
+    def render_training_view(self, i: int):
+        """Render training view i in the map's own frame (see
+        :meth:`_render_normalized`)."""
+        ts = self.train_set
+        return self._render_normalized(ts.c2w[i], ts.intrinsics[i])
+
+    def render_image(self, c2w_world, intrinsics):
+        """Full-frame render at a world-frame c2w pose.  Returns numpy
+        (sRGB rgb (H, W, 3), depth (H, W) in world units)."""
+        cfg = self.cfg
+        c2w = torch.as_tensor(np.asarray(c2w_world, np.float32),
+                              device=self.device).clone()
+        c2w[:3, 3] = c2w[:3, 3] * cfg.scale + torch.tensor(
+            cfg.offset, dtype=torch.float32, device=self.device)
+        intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                               device=self.device)
+        rgb, depth = self._render_normalized(c2w, intr)
+        return rgb.cpu().numpy(), depth.cpu().numpy() / cfg.scale
 
     @torch.no_grad()
     def evaluate_training_views(self, max_views: int = 8):
@@ -365,3 +426,69 @@ class NerfFusion:
                "depth_l1_aligned_cm": mean(l1s_aligned)}
         self.results.append(row)
         return row
+
+    def write_results_csv(self, path: str):
+        """results.csv, one row per online evaluation."""
+        cols = ["iteration", "wall_s", "psnr", "depth_l1_cm",
+                "depth_l1_aligned_cm"]
+        with open(path, "w") as f:
+            f.write(",".join(cols) + "\n")
+            for row in self.results:
+                f.write(",".join(str(row.get(c, "")) for c in cols) + "\n")
+
+    @torch.no_grad()
+    def extract_mesh(self, path: str = "fusion_mesh.obj",
+                     resolution: int = 128, iso: float = 10.0,
+                     chunk: int = 8):
+        """Mesh of the density iso-surface sigma = ``iso`` over the unit
+        cube, marched at ``resolution``^3 (written to ``path`` as .obj
+        unless ``path`` is empty).  Returns (verts world frame, faces)."""
+        from . import mesher
+        cfg = self.cfg
+        n = resolution
+        xs = (np.arange(n) + 0.5) / n
+        sdf = np.empty((n, n, n), np.float32)
+        dirs = torch.zeros((n * n, 3), device=self.device)
+        dirs[:, 2] = 1.0
+        for z0 in range(0, n, chunk):
+            zc = min(chunk, n - z0)
+            g = np.stack(np.meshgrid(xs[z0:z0 + zc], xs, xs, indexing="ij"),
+                         axis=-1)
+            pos = torch.as_tensor(g.reshape(-1, 3)[:, ::-1].copy(),
+                                  dtype=torch.float32, device=self.device)
+            sig = [query(self.field, pos[i * n * n:(i + 1) * n * n],
+                         dirs)[0].cpu().numpy() for i in range(zc)]
+            sdf[z0:z0 + zc] = iso - np.stack(sig).reshape(zc, n, n)
+        verts, faces = mesher.marching_tetrahedra(sdf)
+        if verts.shape[0]:
+            # grid index (z, y, x) -> unit cube -> world
+            verts = verts[:, ::-1] / n
+            verts = (verts - np.asarray(cfg.offset)) / cfg.scale
+            if path:
+                mesher.write_obj(path, verts, faces)
+        return verts, faces
+
+    def evaluate(self, gt_images_u8, gt_depths, c2ws, intrinsics,
+                 max_views: int = 8):
+        """PSNR and depth-L1 (cm) over world-frame views; appends and
+        returns a results row.  A monocular map's frame differs from the
+        ground truth's by a similarity: align ``c2ws`` first, or prefer
+        :meth:`evaluate_training_views`."""
+        psnrs, l1s = [], []
+        for i in range(min(len(c2ws), max_views)):
+            rgb, depth = self.render_image(to_numpy(c2ws[i]),
+                                           to_numpy(intrinsics[i]))
+            gt = np.asarray(to_numpy(gt_images_u8[i]), np.float32) / 255.0
+            psnrs.append(mse2psnr(float(np.mean((rgb - gt) ** 2))))
+            if gt_depths is not None:
+                gtd = np.asarray(to_numpy(gt_depths[i]), np.float32)
+                err = np.abs(depth - gtd)[gtd > 0]
+                err = err[err < 2.0]            # truncate outliers at 2 m
+                if err.size:
+                    l1s.append(float(err.mean()) * 100.0)
+        row = {"iteration": self.iteration,
+               "psnr": float(np.mean(psnrs)) if psnrs else float("nan"),
+               "depth_l1_cm": float(np.mean(l1s)) if l1s else float("nan")}
+        self.results.append(row)
+        return row
+

@@ -1,11 +1,16 @@
-"""Frequency-encoded radiance field and volume rendering (PyTorch).
+"""Radiance fields and volume rendering (PyTorch).
 
-The mapping backbone of the main path (the JAX package's default
-``NGPConfig.encoding="pe"``; the hash grid is not ported yet): a
-NeRF positional encoding into a 4-layer, 256-wide MLP with a skip, an
-exp density head and an SH-conditioned color head.  Its layers compute
-in bf16 on f32 master weights, as the JAX package's ``dtype=bf16`` dense
-layers do.
+The mapping backbones of the JAX package's ``fusion/ngp.py``, chosen by
+``NGPConfig.encoding``:
+
+- ``"pe"`` (the default, the main path): a NeRF positional encoding into
+  a 4-layer, 256-wide MLP with a skip, a density head and an
+  SH-conditioned color head (:class:`PEField`);
+- ``"hash"``: instant-ngp's multiresolution hash grid (``hashgrid.py``)
+  into a 64-wide density MLP and a 3-layer color MLP (:class:`NGPField`).
+
+Both fields compute their layers in bf16 on f32 master weights, as the
+JAX package's ``dtype=bf16`` dense layers do; the hash table stays f32.
 
 Randomness is drawn outside the math: every sampling function takes its
 uniform/normal draws as tensors (see :func:`draw_ray_samples`), so a test
@@ -14,20 +19,26 @@ can feed the same numbers to this package and the JAX one.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .hashgrid import HashGridConfig, encode_chunked, init_table
+
 
 @dataclass(frozen=True)
 class NGPConfig:
-    pe_degrees: int = 10            # frequency bands
-    hidden: int = 64                # color-MLP width
-    pe_hidden: int = 256            # trunk width
-    pe_depth: int = 4               # trunk layers
+    encoding: str = "pe"            # "pe" | "hash"
+    grid: HashGridConfig = field(default_factory=HashGridConfig)
+    pe_degrees: int = 10            # frequency bands for "pe"
+    hidden: int = 64                # density-MLP width for "hash", and
+                                    # the color MLP's
+    pe_hidden: int = 256            # trunk width for "pe"
+    pe_depth: int = 4               # trunk layers for "pe"
     geo_features: int = 15          # density head's extra outputs
     n_uniform: int = 96             # stratified samples / ray
     n_depth: int = 32               # depth-guided samples / ray
@@ -36,7 +47,10 @@ class NGPConfig:
     depth_sigma_floor: float = 0.012
     rgb_weight: float = 1.0
     depth_weight: float = 0.5
-    pe_lr: float = 5e-4
+    lr: float = 1e-2                # Adam rate for "hash"
+    pe_lr: float = 5e-4             # and for "pe"
+    density_activation: str = "exp"  # exp (instant-ngp) | softplus
+    hash_chunk: int = 131072        # points per hash gather (0: one op)
 
 
 def positional_encoding(x: torch.Tensor, degrees: int) -> torch.Tensor:
@@ -89,10 +103,31 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def _lecun_init(module: nn.Module,
+                generator: Optional[torch.Generator]) -> None:
+    """flax's Dense init: LeCun-normal kernels (truncated at two standard
+    deviations), zero biases."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Dense):
+                std = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                m.weight.copy_(w * std)
+                m.bias.zero_()
+
+
+def _density(raw: torch.Tensor, cfg: NGPConfig) -> torch.Tensor:
+    if cfg.density_activation == "exp":
+        return torch.exp(torch.clamp(raw, -15.0, 12.0))
+    return F.softplus(raw)
+
+
 class PEField(nn.Module):
     """Frequency-encoded MLP radiance field.  Layer names follow the JAX
     package's flax module (``trunk_i``, ``density_out``, ``rgb_0/1``), so
-    its parameters convert one to one (models/convert.py)."""
+    its parameters convert one to one (:func:`load_ngp_params`)."""
 
     def __init__(self, cfg: NGPConfig = NGPConfig(),
                  compute_dtype: torch.dtype = torch.bfloat16,
@@ -109,20 +144,7 @@ class PEField(nn.Module):
         self.density_out = Dense(cin, 1 + cfg.geo_features, compute_dtype)
         self.rgb_0 = Dense(cfg.geo_features + 16, cfg.hidden, compute_dtype)
         self.rgb_1 = Dense(cfg.hidden, 3, compute_dtype)
-        self.reset_parameters(generator)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax's Dense init: LeCun-normal kernels (truncated at two
-        standard deviations), zero biases."""
-        for m in self.modules():
-            if isinstance(m, Dense):
-                std = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
-                w = torch.empty(m.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                m.weight.copy_(w * std)
-                m.bias.zero_()
+        _lecun_init(self, generator)
 
     def forward(self, pos: torch.Tensor, dirs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -137,16 +159,94 @@ class PEField(nn.Module):
             if i == cfg.pe_depth // 2 - 1:
                 h = torch.cat([h, skip], dim=-1)
         raw = self.density_out(h)
-        sigma = torch.exp(torch.clamp(raw[..., 0].float(), -15.0, 12.0))
+        sigma = _density(raw[..., 0].float(), cfg)
         c = torch.cat([raw[..., 1:], sh_encode_deg4(dirs).to(dt)], dim=-1)
         c = self.rgb_1(F.relu(self.rgb_0(c)))
         return sigma, torch.sigmoid(c.float())
 
 
-def query(field: PEField, pos: torch.Tensor, dirs: torch.Tensor):
-    """pos, dirs: (..., 3) -> (sigma (...), rgb (..., 3))."""
+class NGPField(nn.Module):
+    """Hash-grid radiance field: density and color MLPs on hash features
+    (layer names as the JAX package's flax ``NGPField``).  The (L, T, F)
+    f32 table is the parameter ``table``; :func:`query` encodes positions
+    with it and hands the features to :meth:`forward`."""
+
+    def __init__(self, cfg: NGPConfig,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.density_0 = Dense(cfg.grid.out_dim, cfg.hidden, compute_dtype)
+        self.density_1 = Dense(cfg.hidden, 1 + cfg.geo_features,
+                               compute_dtype)
+        self.rgb_0 = Dense(cfg.geo_features + 16, cfg.hidden, compute_dtype)
+        self.rgb_1 = Dense(cfg.hidden, cfg.hidden, compute_dtype)
+        self.rgb_2 = Dense(cfg.hidden, 3, compute_dtype)
+        _lecun_init(self, generator)
+        self.table = nn.Parameter(init_table(cfg.grid, generator))
+
+    def forward(self, feat: torch.Tensor, dirs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feat: (N, L*F) hash features; dirs: (N, 3) unit.
+        Returns (sigma (N,) f32, rgb (N, 3) f32)."""
+        dt = self.density_0.compute_dtype
+        h = self.density_1(F.relu(self.density_0(feat.to(dt))))
+        sigma = _density(h[..., 0].float(), self.cfg)
+        c = torch.cat([h[..., 1:], sh_encode_deg4(dirs).to(dt)], dim=-1)
+        c = F.relu(self.rgb_0(c))
+        c = F.relu(self.rgb_1(c))
+        return sigma, torch.sigmoid(self.rgb_2(c).float())
+
+
+def init_ngp(cfg: NGPConfig,
+             generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The field ``cfg.encoding`` names, initialized from ``generator``
+    (on the CPU; move it with ``.to``)."""
+    if cfg.encoding == "pe":
+        return PEField(cfg, generator=generator)
+    if cfg.encoding == "hash":
+        return NGPField(cfg, generator=generator)
+    raise ValueError(f"unknown NGP encoding {cfg.encoding!r}")
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def load_ngp_params(field: nn.Module, table: Optional[np.ndarray],
+                    mlp: Mapping) -> nn.Module:
+    """Copy the JAX package's NGP parameters into ``field``: ``mlp``, the
+    flax parameter tree as numpy (``{"params": {"trunk_0": {"kernel":
+    ...}}}``), and, for a hash field, the (L, T, F) ``table`` (the PE
+    field's placeholder table is ignored)."""
+    from ..models.convert import flax_to_state_dict
+    sd = flax_to_state_dict(_flatten(mlp))
+    if isinstance(field, NGPField):
+        sd["table"] = torch.from_numpy(np.asarray(table, np.float32).copy())
+    own = field.state_dict()
+    if set(sd) != set(own):
+        raise KeyError(f"NGP parameter keys differ: missing "
+                       f"{sorted(set(own) - set(sd))[:5]}, unexpected "
+                       f"{sorted(set(sd) - set(own))[:5]}")
+    field.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
+    return field
+
+
+def query(field: nn.Module, pos: torch.Tensor, dirs: torch.Tensor):
+    """pos, dirs: (..., 3) -> (sigma (...), rgb (..., 3)), through the
+    hash encoding first for a hash field."""
     lead = pos.shape[:-1]
-    sigma, rgb = field(pos.reshape(-1, 3), dirs.reshape(-1, 3))
+    pos, dirs = pos.reshape(-1, 3), dirs.reshape(-1, 3)
+    cfg = field.cfg
+    if cfg.encoding == "hash":
+        pos = encode_chunked(field.table, pos, cfg.grid, cfg.hash_chunk)
+    sigma, rgb = field(pos, dirs)
     return sigma.reshape(lead), rgb.reshape(lead + (3,))
 
 
@@ -184,7 +284,7 @@ def sample_along_rays(depth_guess: torch.Tensor, depth_valid: torch.Tensor,
     return torch.sort(torch.cat([tu, td], dim=-1), dim=-1).values
 
 
-def occupancy_grid(field: PEField, res: int, device) -> torch.Tensor:
+def occupancy_grid(field: nn.Module, res: int, device) -> torch.Tensor:
     """Dense sigma grid over the unit cube, (res, res, res) [z, y, x]."""
     g = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res
     zz, yy, xx = torch.meshgrid(g, g, g, indexing="ij")
@@ -227,7 +327,7 @@ def sample_in_interval(t_lo: torch.Tensor, t_hi: torch.Tensor,
     return t_lo[:, None] + (t_hi - t_lo)[:, None] * s
 
 
-def render_rays(field: PEField, cfg: NGPConfig, origins: torch.Tensor,
+def render_rays(field: nn.Module, cfg: NGPConfig, origins: torch.Tensor,
                 dirs: torch.Tensor, t: torch.Tensor):
     """Volume rendering of rays o + t d (dirs not necessarily unit; t in
     units of |d|).  Returns (rgb (R, 3), depth (R,), acc (R,),

@@ -24,7 +24,7 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray],
         if not key.startswith(prefix):
             continue
         path, leaf = key[len(prefix):].rsplit(".", 1)
-        v = np.asarray(value, np.float32)
+        v = np.array(value, np.float32)
         if leaf == "kernel":
             if v.ndim == 4:
                 v = v.transpose(3, 2, 0, 1)

@@ -215,7 +215,7 @@ def lookup_pyramid_l0_plain(vol0: torch.Tensor, coords: torch.Tensor,
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 # without argtypes ctypes would pass each pointer as a 32-bit int
 _ARGTYPES = {
-    "corr_lookup_launch": ([_VOID] * 4 + [ctypes.POINTER(_INT)]
+    "corr_lookup_launch": ([_VOID] * 4 + [ctypes.POINTER(_INT), _INT]
                            + [_VOID] * 2 + [_INT] * 3 + [_VOID]),
     "corr_lookup_grouped4_launch": ([_VOID] * 4 + [ctypes.POINTER(_INT), _INT]
                                     + [_VOID] * 3 + [_INT] * 4 + [_VOID]),
@@ -281,6 +281,12 @@ def l0_plan(addr: int, h2p: int, w2: int) -> Tuple[int, bool]:
     return mode, pair
 
 
+def _vec_mask(levels) -> int:
+    """Bit l set: the grouped4 kernel may read level l as 4-byte words."""
+    return sum((load_width(v.data_ptr(), v.numel()) == 4) << lvl
+               for lvl, v in enumerate(levels))
+
+
 def _level_dims(levels, real_dims):
     dims = ([v.shape[-2] for v in levels] + [v.shape[-1] for v in levels]
             + [d[0] for d in real_dims] + [d[1] for d in real_dims])
@@ -319,13 +325,12 @@ def lookup_pyramid_grouped4(levels: Sequence[torch.Tensor],
     out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
                       dtype=torch.float32 if n_act is None
                       else torch.bfloat16)
-    vec_mask = sum((load_width(v.data_ptr(), v.numel()) == 4) << lvl
-                   for lvl, v in enumerate(levels))
     stream = torch.cuda.current_stream(coords.device).cuda_stream
     _raise_on(_lib("corr_lookup_grouped4_launch")(
-        *[v.data_ptr() for v in levels], _level_dims(levels, dims), vec_mask,
-        coords.data_ptr(), None if n_act is None else n_act.data_ptr(),
-        out.data_ptr(), E, H1, W1, int(n_act is None), stream))
+        *[v.data_ptr() for v in levels], _level_dims(levels, dims),
+        _vec_mask(levels), coords.data_ptr(),
+        None if n_act is None else n_act.data_ptr(), out.data_ptr(), E, H1,
+        W1, int(n_act is None), stream))
     launches["corr_lookup_grouped4"] += 1
     return out
 
@@ -333,7 +338,9 @@ def lookup_pyramid_grouped4(levels: Sequence[torch.Tensor],
 def lookup_pyramid(levels: Sequence[torch.Tensor],
                    coords: torch.Tensor) -> torch.Tensor:
     """4-level lookup from unpadded bf16 levels (E, H1, W1, H_l, W_l):
-    exact taps, fp32 bilinear weights.  Returns (E, H1, W1, 196) fp32."""
+    exact taps, fp32 bilinear weights.  Returns (E, H1, W1, 196) fp32.
+    Runs on the grouped4 kernel's exact mode (word loads as
+    :func:`load_width` allows)."""
     if coords.device.type == "cpu":
         return lookup_pyramid_plain(levels, coords)
     _check_inputs(levels, coords)
@@ -344,7 +351,8 @@ def lookup_pyramid(levels: Sequence[torch.Tensor],
     _raise_on(_lib()(
         *[v.data_ptr() for v in levels],
         _level_dims(levels, [tuple(v.shape[-2:]) for v in levels]),
-        coords.data_ptr(), out.data_ptr(), E, H1, W1, stream))
+        _vec_mask(levels), coords.data_ptr(), out.data_ptr(), E, H1, W1,
+        stream))
     launches["corr_lookup_pyramid"] += 1
     return out
 

@@ -4,7 +4,7 @@
 // 7x7 window per pixel and level, sampled bilinearly from an 8x8 tap
 // support, level coordinates x0 / 2^l, window start floor(x_l) - 3,
 // out-of-bounds taps exactly 0, output channel lvl*49 + a*7 + b (a = x
-// offset, b = y offset).  Four device kernels:
+// offset, b = y offset).  Three device kernels:
 //
 // corr_lookup_grouped4_kernel replaces the TPU kernel
 //   nerf_slam_tpu/ops/corr_pallas.py  lookup_pyramid_grouped4_nhwc
@@ -19,11 +19,12 @@
 // allocates the output with torch.empty, and garbage left there would
 // reach the GRU's per-keyframe segment sums, where NaN * 0 spreads.
 //
-// corr_lookup_kernel<kNLv> with kNLv = 4 replaces the TPU kernel
+// The same device kernel, in its exact mode (kExact), replaces the TPU
+// kernel
 //   nerf_slam_tpu/ops/corr_pallas.py  lookup_pyramid_pallas_nhwc
 //   (_lookup_pyramid_kernel / _level_lookup_body): exact bf16 taps with
 //   fp32 bilinear weights, summed as w00*S00 + w10*S10 + w01*S01 +
-//   w11*S11 in that order, fp32 output.
+//   w11*S11 in that order, fp32 output, no gate.
 // corr_level_kernel computes the same function for one level (coords
 // already in level units, 49 channels) and replaces the two single-level
 // TPU kernels
@@ -67,11 +68,18 @@
 // contiguous run of 16-byte stores (an 8-byte head or tail where a bf16
 // pixel starts on an odd 8 bytes); gated-off slots write their zeros the
 // same way.  corr_level_kernel does the same with eight lanes a pixel,
-// four pixels a warp, and 16-byte loads.  corr_lookup_kernel is the first
-// design, kept for the motion filter's lookup (#2): one block per (source
-// row, edge), one thread per (pixel, level, y offset b), scalar 2-byte
-// loads, each support row read by the two threads that share it, 7
-// strided stores a thread.
+// four pixels a warp, and 16-byte loads.
+//
+// The motion filter's lookup (#2) runs at one edge slot, 42 x 80 pixels.
+// Its first design (one block per source row and edge, one thread per
+// pixel, level and window row, scalar 2-byte loads, 7 strided stores a
+// thread) put 42 blocks on 132 SMs.  It now takes the grouped4 kernel's
+// exact mode: 3,360 warps (420 blocks), a lane per (level, support row)
+// with word loads, and each pixel's 196 fp32 outputs leave as one aligned
+// 784-byte run (49 16-byte stores, no head or tail).  corr_level_kernel
+// was the other candidate; it would need one launch per level, or a
+// four-level variant whose 49-channel runs start 196*l bytes into a
+// pixel's record, off the 16-byte grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,87 +116,9 @@ __device__ __forceinline__ float hat(float base, float star) {
                           0.0f));
 }
 
-// The first design, for the motion filter's lookup.  n_act and OutT are
-// left from the time when it also served the gated lookup (the caller
-// passes null and float): without them ptxas scheduled its one-level
-// instance 12% slower on the card.
-template <int kNLv, typename OutT>
-__global__ void __launch_bounds__(256)
-corr_lookup_kernel(Levels lv, const float2* __restrict__ coords,
-                   const int* __restrict__ n_act, OutT* __restrict__ out,
-                   int H1, int W1) {
-  constexpr int kCh = kNLv * kRd * kRd;     // 196 output channels, or 49
-  const int y = blockIdx.x;
-  const int e = blockIdx.y;
-  const int64_t pix0 = (static_cast<int64_t>(e) * H1 + y) * W1;
-  OutT* orow = out + pix0 * kCh;
-
-  if (n_act != nullptr && e >= __ldg(n_act)) {
-    for (int i = threadIdx.x; i < W1 * kCh; i += blockDim.x)
-      store(orow + i, 0.0f);
-    return;
-  }
-
-  const int items = W1 * kNLv * kRd;             // (pixel, level, b)
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int b = it % kRd;
-    const int lvl = (it / kRd) % kNLv;
-    const int x = it / (kRd * kNLv);
-    const float2 c = coords[pix0 + x];
-
-    const float inv = 1.0f / static_cast<float>(1 << lvl);   // exact
-    const float xl = __fmul_rn(c.x, inv);
-    const float yl = __fmul_rn(c.y, inv);
-    const float fx = floorf(xl);
-    const float fy = floorf(yl);
-    const float dx = __fsub_rn(xl, fx);
-    const float dy = __fsub_rn(yl, fy);
-
-    const int hs = lv.slab_h[lvl];
-    const int ws = lv.slab_w[lvl];
-    const int hr = min(lv.real_h[lvl], hs);
-    const int wr = min(lv.real_w[lvl], ws);
-    const __nv_bfloat16* plane =
-        lv.ptr[lvl] + (pix0 + x) * static_cast<int64_t>(hs) * ws;
-
-    float o[kRd];
-    const int xi = static_cast<int>(fminf(
-        fmaxf(__fsub_rn(fx, 3.0f), -8.0f), static_cast<float>(ws + 8)));
-    const int yi = static_cast<int>(fminf(
-        fmaxf(__fsub_rn(fy, 3.0f), -8.0f), static_cast<float>(hs + 8)));
-    const float ox = __fsub_rn(1.0f, dx);
-    const float oy = __fsub_rn(1.0f, dy);
-    const float w00 = __fmul_rn(ox, oy);
-    const float w10 = __fmul_rn(dx, oy);
-    const float w01 = __fmul_rn(ox, dy);
-    const float w11 = __fmul_rn(dx, dy);
-    const int y0 = yi + b;
-    const bool ok0 = y0 >= 0 && y0 < hr;
-    const bool ok1 = y0 + 1 >= 0 && y0 + 1 < hr;
-    float t0[kSup], t1[kSup];
-#pragma unroll
-    for (int s = 0; s < kSup; ++s) {
-      const int xx = xi + s;
-      const bool okx = xx >= 0 && xx < wr;
-      t0[s] = (ok0 && okx) ? __bfloat162float(plane[y0 * ws + xx]) : 0.0f;
-      t1[s] = (ok1 && okx) ? __bfloat162float(plane[(y0 + 1) * ws + xx])
-                           : 0.0f;
-    }
-#pragma unroll
-    for (int a = 0; a < kRd; ++a) {
-      float v = __fadd_rn(__fmul_rn(w00, t0[a]), __fmul_rn(w10, t0[a + 1]));
-      v = __fadd_rn(v, __fmul_rn(w01, t1[a]));
-      o[a] = __fadd_rn(v, __fmul_rn(w11, t1[a + 1]));
-    }
-
-    OutT* op = orow + static_cast<int64_t>(x) * kCh + lvl * kRd * kRd + b;
-#pragma unroll
-    for (int a = 0; a < kRd; ++a) store(op + a * kRd, o[a]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The update loop's lookup from four pooled slabs (hat rounding).
+// The four-level lookups: the update loop's from four pooled slabs (hat
+// rounding) and the motion filter's from four unpadded levels (exact).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float bf_lo(uint32_t p) {      // lower address
@@ -296,7 +226,10 @@ __device__ __forceinline__ void store_run(OutT* gout,
 // vec_mask bit l: level l may be read as aligned 4-byte words (its base is
 // 4-byte aligned and its element count even, so that the word around any
 // in-bounds element lies inside the tensor); else 2-byte loads.
-template <typename OutT>
+// kExact (kernel #2, OutT float, no n_act): exact taps and the fp32
+// weights (1-dx)(1-dy), dx(1-dy), (1-dx)dy, dx dy in the four-term order
+// above; a non-finite coord gives NaN, as in the plain version.
+template <typename OutT, bool kExact>
 __global__ void __launch_bounds__(kG4Warps * 32)
 corr_lookup_grouped4_kernel(const __grid_constant__ Levels lv, int vec_mask,
                             const float2* __restrict__ coords,
@@ -310,7 +243,7 @@ corr_lookup_grouped4_kernel(const __grid_constant__ Levels lv, int vec_mask,
   const int64_t pix = static_cast<int64_t>(blockIdx.x) * kG4Warps + warp;
   if (pix >= n_pix) return;                    // warps never sync as a block
   OutT* opix = out + pix * kCh4;
-  if (n_act != nullptr && pix / pix_per_slot >= __ldg(n_act)) {
+  if (!kExact && n_act != nullptr && pix / pix_per_slot >= __ldg(n_act)) {
     store_run<OutT>(opix, nullptr, lane);
     return;
   }
@@ -335,14 +268,25 @@ corr_lookup_grouped4_kernel(const __grid_constant__ Levels lv, int vec_mask,
                          static_cast<float>(lv.real_w[lvl] + 8));
   const float yi = fminf(fmaxf(__fsub_rn(fy, 3.0f), -8.0f),
                          static_cast<float>(lv.real_h[lvl] + 8));
-  float xs = __fadd_rn(xi, dx);
-  float ys = __fadd_rn(yi, dy);
-  if (!isfinite(xs)) xs = -1e4f;               // selects nothing
-  if (!isfinite(ys)) ys = -1e4f;
-  const float wy0 = hat(yi, ys);
-  const float wy1 = hat(__fadd_rn(yi, 1.0f), ys);
-  const float wx0 = hat(xi, xs);
-  const float wx1 = hat(__fadd_rn(xi, 1.0f), xs);
+  // kExact: (w00, w10, w01, w11); else the hat weights (wy0, wy1, wx0, wx1)
+  float wa, wb, wc, wd;
+  if (kExact) {
+    const float ox = __fsub_rn(1.0f, dx);
+    const float oy = __fsub_rn(1.0f, dy);
+    wa = __fmul_rn(ox, oy);
+    wb = __fmul_rn(dx, oy);
+    wc = __fmul_rn(ox, dy);
+    wd = __fmul_rn(dx, dy);
+  } else {
+    float xs = __fadd_rn(xi, dx);
+    float ys = __fadd_rn(yi, dy);
+    if (!isfinite(xs)) xs = -1e4f;             // selects nothing
+    if (!isfinite(ys)) ys = -1e4f;
+    wa = hat(yi, ys);
+    wb = hat(__fadd_rn(yi, 1.0f), ys);
+    wc = hat(xi, xs);
+    wd = hat(__fadd_rn(xi, 1.0f), xs);
+  }
 
   // this lane's support row: taps x0 .. x0 + 7 of row y0, two to a word
   const int y0 = static_cast<int>(yi) + r;
@@ -356,25 +300,40 @@ corr_lookup_grouped4_kernel(const __grid_constant__ Levels lv, int vec_mask,
       load_support_row<2>(lv.ptr[lvl], off, x0, wr, p);
   }
 
-  // y pass: the row below comes from the next lane (row 7 has none and
-  // writes nothing), rounded to bf16; then the x pass in fp32
-  float row[kSup];
+  // the row below comes from the next lane (row 7 has none and writes
+  // nothing)
+  float t0[kSup], t1[kSup];
 #pragma unroll
   for (int i = 0; i < kSup / 2; ++i) {
     const uint32_t q = __shfl_down_sync(0xffffffffu, p[i], 1);
-    row[2 * i] = round_bf16(__fadd_rn(__fmul_rn(wy0, bf_lo(p[i])),
-                                      __fmul_rn(wy1, bf_lo(q))));
-    row[2 * i + 1] = round_bf16(__fadd_rn(__fmul_rn(wy0, bf_hi(p[i])),
-                                          __fmul_rn(wy1, bf_hi(q))));
+    t0[2 * i] = bf_lo(p[i]);
+    t0[2 * i + 1] = bf_hi(p[i]);
+    t1[2 * i] = bf_lo(q);
+    t1[2 * i + 1] = bf_hi(q);
   }
   unsigned char* stage = stage_all[warp];
   if (r < kRd) {
     OutT* sp = reinterpret_cast<OutT*>(
         stage + (reinterpret_cast<uintptr_t>(opix) & 15)) + lvl * kRd * kRd + r;
+    if (kExact) {
 #pragma unroll
-    for (int a = 0; a < kRd; ++a)
-      store(sp + a * kRd,
-            __fadd_rn(__fmul_rn(wx0, row[a]), __fmul_rn(wx1, row[a + 1])));
+      for (int a = 0; a < kRd; ++a) {
+        float v = __fadd_rn(__fmul_rn(wa, t0[a]), __fmul_rn(wb, t0[a + 1]));
+        v = __fadd_rn(v, __fmul_rn(wc, t1[a]));
+        store(sp + a * kRd, __fadd_rn(v, __fmul_rn(wd, t1[a + 1])));
+      }
+    } else {
+      // y pass rounded to bf16, then the x pass in fp32
+      float row[kSup];
+#pragma unroll
+      for (int k = 0; k < kSup; ++k)
+        row[k] = round_bf16(__fadd_rn(__fmul_rn(wa, t0[k]),
+                                      __fmul_rn(wb, t1[k])));
+#pragma unroll
+      for (int a = 0; a < kRd; ++a)
+        store(sp + a * kRd,
+              __fadd_rn(__fmul_rn(wc, row[a]), __fmul_rn(wd, row[a + 1])));
+    }
   }
   __syncwarp();
   store_run<OutT>(opix, stage, lane);
@@ -835,41 +794,16 @@ void fill_levels(Levels& lv, const int* dims) {
 
 // Plain C entry points (bound with ctypes).  Each returns the launch's
 // cudaError_t.
-//
-// Four unpadded levels, exact bf16 taps, fp32 out (lookup_pyramid of
-// corr_lookup.py).  dims holds slab_h[4], slab_w[4], real_h[4], real_w[4].
-extern "C" int corr_lookup_launch(const void* l0, const void* l1,
-                                  const void* l2, const void* l3,
-                                  const int* dims, const void* coords,
-                                  void* out, int E, int H1, int W1,
-                                  void* stream) {
-  if (E == 0 || H1 == 0 || W1 == 0) return 0;
-  Levels lv;
-  const void* ptrs[kLevels] = {l0, l1, l2, l3};
-  for (int l = 0; l < kLevels; ++l)
-    lv.ptr[l] = static_cast<const __nv_bfloat16*>(ptrs[l]);
-  fill_levels(lv, dims);
-  corr_lookup_kernel<kLevels, float>
-      <<<dim3(H1, E), dim3(256), 0, static_cast<cudaStream_t>(stream)>>>(
-          lv, static_cast<const float2*>(coords), nullptr,
-          static_cast<float*>(out), H1, W1);
-  return static_cast<int>(cudaGetLastError());
-}
+namespace {
 
-// Four pooled, row-padded slabs with hat rounding (lookup_pyramid_grouped4).
-// dims as above; n_act may be null (ungated); out is bf16, or fp32 with
-// out_f32; vec_mask bit l allows 4-byte loads from level l and is refused
-// where that level's base or element count does not.
-extern "C" int corr_lookup_grouped4_launch(const void* l0, const void* l1,
-                                           const void* l2, const void* l3,
-                                           const int* dims, int vec_mask,
-                                           const void* coords,
-                                           const void* n_act, void* out,
-                                           int E, int H1, int W1,
-                                           int out_f32, void* stream) {
+// The grouped4 kernel over four levels; dims holds slab_h[4], slab_w[4],
+// real_h[4], real_w[4].  vec_mask bit l allows 4-byte loads from level l
+// and is refused where that level's base or element count does not.
+int grouped4_launch(const void* const* ptrs, const int* dims, int vec_mask,
+                    const void* coords, const void* n_act, void* out, int E,
+                    int H1, int W1, int out_f32, bool exact, void* stream) {
   if (E == 0 || H1 == 0 || W1 == 0) return 0;
   Levels lv;
-  const void* ptrs[kLevels] = {l0, l1, l2, l3};
   for (int l = 0; l < kLevels; ++l)
     lv.ptr[l] = static_cast<const __nv_bfloat16*>(ptrs[l]);
   fill_levels(lv, dims);
@@ -882,19 +816,53 @@ extern "C" int corr_lookup_grouped4_launch(const void* l0, const void* l1,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t blocks = (n_pix + kG4Warps - 1) / kG4Warps;
-  if (blocks > 2147483647LL || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+  if (blocks > 2147483647LL || reinterpret_cast<uintptr_t>(out) % 16 != 0
+      || (exact && (!out_f32 || n_act != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(blocks));
   const float2* c = static_cast<const float2*>(coords);
   const int* n = static_cast<const int*>(n_act);
-  if (out_f32)
-    corr_lookup_grouped4_kernel<float><<<grid, kG4Warps * 32, 0, s>>>(
+  if (exact)
+    corr_lookup_grouped4_kernel<float, true><<<grid, kG4Warps * 32, 0, s>>>(
+        lv, vec_mask, c, nullptr, static_cast<float*>(out), n_pix, pps);
+  else if (out_f32)
+    corr_lookup_grouped4_kernel<float, false><<<grid, kG4Warps * 32, 0, s>>>(
         lv, vec_mask, c, n, static_cast<float*>(out), n_pix, pps);
   else
-    corr_lookup_grouped4_kernel<__nv_bfloat16><<<grid, kG4Warps * 32, 0, s>>>(
-        lv, vec_mask, c, n, static_cast<__nv_bfloat16*>(out), n_pix, pps);
+    corr_lookup_grouped4_kernel<__nv_bfloat16, false>
+        <<<grid, kG4Warps * 32, 0, s>>>(lv, vec_mask, c, n,
+                                        static_cast<__nv_bfloat16*>(out),
+                                        n_pix, pps);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Four unpadded levels, exact bf16 taps, fp32 out (lookup_pyramid of
+// corr_lookup.py), on the grouped4 kernel's exact mode.
+extern "C" int corr_lookup_launch(const void* l0, const void* l1,
+                                  const void* l2, const void* l3,
+                                  const int* dims, int vec_mask,
+                                  const void* coords, void* out, int E,
+                                  int H1, int W1, void* stream) {
+  const void* ptrs[kLevels] = {l0, l1, l2, l3};
+  return grouped4_launch(ptrs, dims, vec_mask, coords, nullptr, out, E, H1,
+                         W1, 1, true, stream);
+}
+
+// Four pooled, row-padded slabs with hat rounding (lookup_pyramid_grouped4).
+// n_act may be null (ungated); out is bf16, or fp32 with out_f32.
+extern "C" int corr_lookup_grouped4_launch(const void* l0, const void* l1,
+                                           const void* l2, const void* l3,
+                                           const int* dims, int vec_mask,
+                                           const void* coords,
+                                           const void* n_act, void* out,
+                                           int E, int H1, int W1,
+                                           int out_f32, void* stream) {
+  const void* ptrs[kLevels] = {l0, l1, l2, l3};
+  return grouped4_launch(ptrs, dims, vec_mask, coords, n_act, out, E, H1, W1,
+                         out_f32, false, stream);
 }
 
 // One stored level (kernels lookup_level and lookup_level_grouped of

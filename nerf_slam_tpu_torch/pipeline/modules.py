@@ -11,6 +11,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from ..fusion.nerf_fusion import MASK_TYPES
 from .module import PipelineModule
 
 DEVICE_LOCK = threading.RLock()
@@ -63,14 +64,21 @@ class SlamModule(PipelineModule):
 
 
 class FusionModule(PipelineModule):
-    """Mapping stage (NeRF): non-blocking input, so the field keeps
-    training between SLAM packets."""
+    """Mapping stage.  ``mode`` "nerf": non-blocking input, so the field
+    keeps training between SLAM packets, and the stage ends
+    ``extra_spins_after_done`` spins after the last packet; "sigma" or
+    "tsdf" (a :class:`TsdfFusion`): each packet is integrated, and the
+    stage ends at the last one."""
 
-    def __init__(self, fusion, parallel_run: bool = True,
-                 iters_per_spin: int = 10, extra_spins_after_done: int = 50,
+    def __init__(self, fusion, mode: str = "nerf",
+                 parallel_run: bool = True, iters_per_spin: int = 10,
+                 extra_spins_after_done: int = 50,
                  idle_sleep_s: float = 0.05):
         super().__init__("fusion", parallel_run, input_timeout=1e-3)
+        if mode not in ("nerf", "sigma", "tsdf"):
+            raise ValueError(f"unknown fusion mode {mode!r}")
         self.fusion = fusion
+        self.mode = mode
         self.iters_per_spin = iters_per_spin
         self.extra_spins_after_done = extra_spins_after_done
         # sharing one card with tracking, an unthrottled mapping loop
@@ -79,19 +87,64 @@ class FusionModule(PipelineModule):
         self.done = False
         self._spins_since_done = 0
 
+    def handle_command(self, cmd: Dict[str, Any]):
+        """A viewer's command to the map: ``mesh`` (an .obj at
+        ``cmd["path"]``), ``eval`` (a NeRF results row), ``sigma_thresh``
+        (the masking threshold of packets fused from now on), ``rebuild``
+        (TSDF: replay the history, at ``cmd["value"]`` if given) and
+        ``toggle_mask`` (NeRF: the next ``mask_type``)."""
+        name = cmd.get("cmd")
+        fusion = self.fusion
+        if name == "mesh":
+            out = cmd.get("path", "fusion_mesh.obj")
+            if self.mode == "nerf":
+                fusion.extract_mesh(path=out)
+            else:
+                from ..fusion.mesher import write_obj
+                verts, faces, colors = fusion.extract_mesh()
+                write_obj(out, verts, faces, colors)
+            print(f"[fusion] mesh written to {out}")
+        elif name == "eval":
+            if hasattr(fusion, "evaluate_training_views"):
+                print(f"[fusion] eval: {fusion.evaluate_training_views()}")
+        elif name == "sigma_thresh":
+            fusion.set_sigma_thresh(float(cmd.get("value", 10.0)))
+        elif name == "rebuild":
+            if hasattr(fusion, "rebuild"):
+                if "value" in cmd:
+                    fusion.rebuild(float(cmd["value"]))
+                else:
+                    fusion.rebuild()
+        elif name == "toggle_mask":
+            cfg = getattr(fusion, "cfg", None)
+            if cfg is not None and hasattr(cfg, "mask_type"):
+                cur = MASK_TYPES.index(cfg.mask_type)
+                cfg.mask_type = MASK_TYPES[(cur + 1) % len(MASK_TYPES)]
+
     def spin_once(self, packet):
-        pkt = packet.get("slam") if isinstance(packet, dict) else packet
+        pkt, gui_pkt = packet, None
+        if isinstance(packet, dict) and ("slam" in packet
+                                         or "gui" in packet):
+            pkt, gui_pkt = packet.get("slam"), packet.get("gui")
         with DEVICE_LOCK:
-            self.done = (self.fusion.fuse_and_fit(pkt, self.iters_per_spin)
-                         or self.done)
+            if gui_pkt is not None:
+                for cmd in gui_pkt.get("gui_commands", []):
+                    self.handle_command(cmd)
+            if self.mode == "nerf":
+                self.done = (self.fusion.fuse_and_fit(pkt,
+                                                      self.iters_per_spin)
+                             or self.done)
+            elif pkt is not None:
+                self.done = self.fusion.fuse(pkt) or self.done
         if pkt is None and not self.done and self.parallel_run \
                 and self.idle_sleep_s > 0:
             time.sleep(self.idle_sleep_s)
         if self.done:
             self._spins_since_done += 1
-            if self._spins_since_done >= self.extra_spins_after_done:
+            if (self.mode != "nerf" or self._spins_since_done
+                    >= self.extra_spins_after_done):
                 self.shutdown_module()
-        return {"fusion_step": self.fusion.iteration}
+        return {"fusion_step": getattr(self.fusion, "iteration", 0)}
 
 
 class EvalSink(PipelineModule):

@@ -42,7 +42,8 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
 
 
-def _numpy(x) -> np.ndarray:
+def to_numpy(x) -> np.ndarray:
+    """A host numpy array of a tensor (any device) or an array-like."""
     if hasattr(x, "detach"):
         x = x.detach().cpu().numpy()
     return np.asarray(x)
@@ -62,7 +63,7 @@ def _pose_to_c2w_translation(poses7: np.ndarray) -> np.ndarray:
 
 def trajectory_from_packet(packet) -> Tuple[np.ndarray, np.ndarray]:
     """(est_positions, gt_positions) from a frontend viz packet."""
-    poses = _numpy(packet["cam0_poses"])
+    poses = to_numpy(packet["cam0_poses"])
     n = int(packet.get("viz_count", poses.shape[0]))
     return (_pose_to_c2w_translation(poses[:n]),
-            _numpy(packet["gt_poses"])[:n, :3, 3])
+            to_numpy(packet["gt_poses"])[:n, :3, 3])

@@ -9,10 +9,10 @@ slots active, and ungated) and ``lookup_pyramid_l0`` at 48 slots of 42x80
 pixels: the inputs of ``chip_smoke.py``'s kernel phase; then the
 one-level lookups at their paths' four level shapes (``lookup_level`` at
 feature width 75, ``lookup_level_grouped`` at 80) and
-``lookup_pyramid`` at one slot.  Every kernel but the last is compared
-with its plain version, bit for bit, unless ``--no-check`` (for a copy
-whose kernel was cut on purpose to see what its loads or its stores
-cost).
+``lookup_pyramid`` (#2, the motion filter's lookup) at one slot of 42x80
+pixels, its levels 42x80 .. 5x10.  Every kernel is compared with its
+plain version, bit for bit, unless ``--no-check`` (for a copy whose
+kernel was cut on purpose to see what its loads or its stores cost).
 
 One process times one tree, so two versions are compared by running the
 script once per tree inside one call on one card, in turns.  Prints the
@@ -139,6 +139,10 @@ def main() -> int:
     levels = [lv.to(torch.bfloat16).contiguous() for lv in corr.build_pyramid(
         corr.build_volume(feats()[:1], feats()[:1]))]
     c = flowed()[:1].contiguous()
+    if not args.no_check:
+        res["pyramid_equal"] = bool(torch.equal(
+            corr_lookup.lookup_pyramid(levels, c),
+            corr_lookup.lookup_pyramid_plain(levels, c)))
     res["pyramid_ms"] = time_ms(
         lambda: corr_lookup.lookup_pyramid(levels, c), args.reps)
     print(json.dumps(res), flush=True)

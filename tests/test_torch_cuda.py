@@ -82,6 +82,7 @@ def test_pyramid_kernel_matches_plain(dev):
     got = corr_lookup.lookup_pyramid(levels, c)
     torch.testing.assert_close(got, corr_lookup.lookup_pyramid_plain(
         levels, c), atol=TOL_F32, rtol=0)
+    assert torch.equal(got, corr_lookup.lookup_pyramid_plain(levels, c))
 
 
 @pytest.mark.parametrize("E,H,W", [(2, 16, 16), (3, 10, 14), (2, 7, 9)])
@@ -346,6 +347,46 @@ def test_level_kernel_edges(dev, E, H, W, pad, variant):
                 assert (got == 0).all()
 
 
+@pytest.mark.parametrize("E,H,W", [(1, 42, 80), (3, 10, 14), (2, 7, 9),
+                                   (1, 5, 11)])
+@pytest.mark.parametrize("variant", ["plain", "wide", "misaligned", "far",
+                                     "nan"])
+def test_pyramid_kernel_edges(dev, E, H, W, variant):
+    """Kernel #2 (the grouped4 kernel's exact mode) bit for bit against
+    lookup_pyramid_plain: the motion filter's shape (E = 1, 42 x 80; levels
+    42x80 .. 5x10), E = 3, odd widths W1 (row pitches only 2-byte aligned,
+    odd element counts: 2-byte loads), level bases 2 bytes off, windows
+    wholly out of bounds, NaN coords (NaN out, as in the plain version)
+    and a wide dynamic range."""
+    f1, f2, c = _inputs(dev, 11 * E + W, E, H, W)
+    levels = [lv.to(torch.bfloat16).contiguous() for lv in
+              corr.build_pyramid(corr.build_volume(f1, f2))]
+    if variant == "wide":
+        levels = [_wide(v, 17 + i) for i, v in enumerate(levels)]
+    elif variant == "misaligned":
+        levels = [_misaligned(v) if v.numel() else v for v in levels]
+        assert all(corr_lookup.load_width(v.data_ptr(), v.numel()) == 2
+                   for v in levels if v.numel())
+    elif variant == "far":
+        c = _far(c)
+    elif variant == "nan":
+        c[0, 1, 2] = float("nan")
+        c[-1, 2, :, 0] = float("nan")
+    want = corr_lookup.lookup_pyramid_plain(levels, c)
+    before = corr_lookup.launches["corr_lookup_pyramid"]
+    got = corr_lookup.lookup_pyramid(levels, c)
+    torch.cuda.synchronize()
+    assert corr_lookup.launches["corr_lookup_pyramid"] == before + 1
+    assert got.shape == (E, H, W, 196) and got.dtype == torch.float32
+    nan = torch.isnan(want)
+    assert bool(nan.any()) == (variant == "nan")
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan]), \
+        f"max |err| {(got - want)[~nan].abs().max()}"
+    if variant == "far":
+        assert (got == 0).all()
+
+
 # ---------------------------------------------------------------------------
 # bit-reproducibility: the segment sums and a whole update round
 # ---------------------------------------------------------------------------
@@ -433,3 +474,72 @@ def test_update_round_repeats_bit_for_bit(dev):
     for r in runs[1:]:
         for a, b in zip(runs[0], r):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the map backends on the card against the same code on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("grid", [
+    dict(n_levels=4, log2_table_size=10, base_resolution=8,
+         finest_resolution=64), {}], ids=["small", "default"])
+def test_hash_encode_on_card_matches_cpu(dev, grid):
+    """The hash encode and its backward on the card: indices equal to the
+    CPU's, features within 1e-6, the table and position gradients within
+    1e-5 of their largest entry (index_add_ sums colliding corners with
+    atomics, in another order).  TF32 off: full f32 products."""
+    from nerf_slam_tpu_torch.fusion import hashgrid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = hashgrid.HashGridConfig(**grid)
+    rng = np.random.RandomState(3)
+    pos = torch.from_numpy(rng.rand(20000, 3).astype(np.float32))
+    table = torch.from_numpy(rng.uniform(-1, 1, (
+        cfg.n_levels, cfg.table_size, cfg.n_features)).astype(np.float32))
+    g = torch.from_numpy(rng.randn(20000, cfg.out_dim).astype(np.float32))
+    idx_c = hashgrid._corner_indices_weights(pos, cfg)[0]
+    idx_d = hashgrid._corner_indices_weights(pos.to(dev), cfg)[0]
+    assert torch.equal(idx_d.cpu(), idx_c)
+    outs = []
+    for d in ("cpu", dev):
+        t = table.to(d).detach().requires_grad_(True)
+        p = pos.to(d).detach().requires_grad_(True)
+        out = hashgrid.encode_chunked(t, p, cfg, 8192)
+        out.backward(g.to(d))
+        outs.append([x.detach().cpu() for x in (out, t.grad, p.grad)])
+    (oc, tc, pc), (od, td, pd) = outs
+    torch.testing.assert_close(od, oc, atol=1e-6, rtol=0)
+    for got, want in ((td, tc), (pd, pc)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_tsdf_integrate_on_card_matches_cpu(dev):
+    """Three frames of the synthetic room into a 64^3 volume on the card
+    and on the CPU: tsdf, weight and color within 1e-5 but for voxels
+    whose projection rounds across a .5 pixel boundary in one of them (at
+    most 0.1% of the grid); the ray cast of the card's volume sees the
+    surface."""
+    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
+    from nerf_slam_tpu_torch.fusion import TsdfFusion, TsdfFusionConfig
+    ds = SyntheticDataset(SyntheticConfig(n_frames=9, height=60, width=80,
+                                          seed=21, n_objects=4))
+    rng = np.random.RandomState(0)
+    fusions = [TsdfFusion(TsdfFusionConfig(grid_size=64), device=d)
+               for d in ("cpu", dev)]
+    for k in (0, 4, 8):
+        p = ds[k]
+        cov = rng.uniform(0.0, 40.0, (60, 80)).astype(np.float32)
+        for f in fusions:
+            f.integrate_frame(np.linalg.inv(p["poses"]), p["intrinsics"],
+                              p["depths"], cov, p["images"])
+    (tc, wc, cc), (td, wd, cd) = [[v.cpu() for v in f.volume]
+                                  for f in fusions]
+    bad = ((td - tc).abs() > 1e-5) | ((wd - wc).abs() > 1e-5 * wc.clamp(
+        min=1)) | ((cd - cc).abs() > 1e-5).any(dim=0)
+    assert int((wc > 0).sum()) > 2000
+    assert int(bad.sum()) <= 1e-3 * 64 ** 3, int(bad.sum())
+    p = ds[4]
+    rgb, depth = fusions[1].render(p["poses"], p["intrinsics"], (60, 80))
+    assert np.isfinite(rgb).all() and (depth > 0).mean() > 0.5
+

@@ -46,16 +46,12 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _load(field, mlp_params):
-    field.load_state_dict(flax_to_state_dict(_flat(mlp_params)))
-    return field
-
-
 @pytest.fixture(scope="module")
 def fields():
     cfg_j = jngp.NGPConfig()
     params, jfield = jngp.init_ngp(jax.random.PRNGKey(3), cfg_j)
-    tfield = _load(tngp.PEField(tngp.NGPConfig()), params.mlp)
+    tfield = tngp.load_ngp_params(tngp.PEField(tngp.NGPConfig()),
+                                   params.table, params.mlp)
     return params, jfield, cfg_j, tfield
 
 
@@ -158,7 +154,7 @@ def test_fuse_and_train_step_match():
     cfg_kw = dict(buffer=N_VIEWS + 2, height=H, width=W, batch_rays=RAYS)
     jf = JaxFusion(JaxCfg(**cfg_kw), seed=0)
     tf = NerfFusion(NerfFusionConfig(**cfg_kw), seed=0, device="cpu")
-    _load(tf.field, jf.params.mlp)
+    tngp.load_ngp_params(tf.field, jf.params.table, jf.params.mlp)
     pkt = _packet()
     jf.fuse({k: jnp.asarray(v) if isinstance(v, np.ndarray) and k not in
              ("viz_idx",) else v for k, v in pkt.items()})
@@ -189,7 +185,7 @@ def test_fuse_and_train_step_match():
                   tuple(torch.from_numpy(_np(x)) for x in draws))
     lt, lrt, ldt = tf.loss(batch)
     for a, b in ((lt, loss), (lrt, l_rgb), (ldt, l_d)):
-        np.testing.assert_allclose(float(a), float(b), rtol=2e-2)
+        np.testing.assert_allclose(float(a.detach()), float(b), rtol=2e-2)
     lt.backward()
     mu = _flat(opt_state[0].mu.mlp)
     gj = flax_to_state_dict({k: v / 0.1 for k, v in mu.items()})
@@ -203,3 +199,27 @@ def test_fuse_and_train_step_match():
         nj += float((b * b).sum())
         nt += float((a * a).sum())
     assert dots / np.sqrt(nj * nt) > 0.99
+
+
+@pytest.mark.parametrize("mask,thresh", [("raw", None),
+                                         ("ours_w_thresh", None),
+                                         ("ours_w_thresh", 0.3),
+                                         ("no_depth", None)])
+def test_mask_types_match(mask, thresh):
+    """The depth-uncertainty masks of the packet ingest (the median sigma
+    of the packet, or an absolute threshold once set) give the JAX
+    package's training set (f32: 1e-5)."""
+    cfg_kw = dict(buffer=N_VIEWS, height=H, width=W, mask_type=mask)
+    jf = JaxFusion(JaxCfg(**cfg_kw), seed=0)
+    tf = NerfFusion(NerfFusionConfig(**cfg_kw), seed=0, device="cpu")
+    jf.set_sigma_thresh(thresh)
+    tf.set_sigma_thresh(thresh)
+    pkt = _packet()
+    jf.fuse(pkt)
+    tf.fuse(pkt)
+    for name in ("depths", "depths_cov"):
+        np.testing.assert_allclose(_np(getattr(tf.train_set, name)),
+                                   _np(getattr(jf.train_set, name)),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    masked = (_np(tf.train_set.depths) < 0).mean()
+    assert 0.05 < masked < 1.0 or mask == "no_depth"
