@@ -31,19 +31,38 @@ the synthetic room with objects at 240x320 fused into the default 192^3
 volume, the marching-tetrahedra mesh scored against the analytic surface,
 ray-cast PSNR and depth L1, each held to QUALITY.md's default row; (e)
 the ``slam_demo`` CLI with ``--fusion sigma --eval`` on the production
-frames and weights, sequentially (ATE-RMSE at most 0.25 m); (f) the
-hash-grid NeRF (default ``HashGridConfig``) fitted for 2000 iterations at
-4096 rays on the sequential run's keyframes, beside the PE field's fit
-on the same keyframes: the loss must stay finite and the PSNR of the last
-evaluation must exceed the first's.
+frames and weights, sequentially (ATE-RMSE at most 0.25 m), then with
+``--stereo`` and with ``--rgbd`` (no map); (f) the hash-grid NeRF
+(default ``HashGridConfig``) fitted for 2000 iterations at 4096 rays on
+the sequential run's keyframes, beside the PE field's fit on the same
+keyframes: the loss must stay finite and the PSNR of the last evaluation
+must exceed the first's; a second fit from the same seed, 500
+iterations, must repeat the first's to the bit (its table gradient is a
+fixed-order scatter).
+
+The tracker's sensor modes run right after paths (a)-(c), on the
+production frames, weights and filters, sequentially, each twice on
+fresh state and held to the bit: (g) stereo (the right camera 0.1 m
+along +x, the rig pose from the packets, 64 edge slots for the stereo
+edges), which must put (i, i) stereo edges into the graph, and (h) RGB-D
+(the packets' depths as sensed depths); both must launch kernels #1 and
+#2 and keep every pose and depth finite, and they print the Sim(3)- and
+SE(3)-aligned ATE and the Sim(3) scale.  Last, after (f), (i) the
+mapper's options on the sequential run's keyframes: a 2000-iteration PE
+fit with pose refinement (``optimize_extrinsics``, from iteration 500,
+25 pose-only steps a 100-step cycle), the same with depth annealing over
+1000 iterations, a training-view render without the occupancy bound
+(``render_accel=False``) and free-view renders at the dynamic
+resolution.
 
 Output, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the pipeline and path lines, the ``kernels``
-JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-without the ``ok`` line.  Needs a CUDA device; imports no JAX.
+JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero without the ``ok`` line.  Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -84,6 +103,11 @@ TSDF_REF = {"mesh_err_mean_cm": (0.237, 0.02), "psnr_db": (31.15, 0.5),
             "depth_l1_cm": (0.71, 0.1)}
 # (f): the hash grid's fit, evaluated every HASH_EVAL_EVERY iterations
 HASH_EVAL_EVERY = 500
+# (g): the synthetic rig's baseline, metres along the camera's +x
+STEREO_BASELINE = 0.1
+# (i): the pose refinement's schedule
+REFINE = dict(optimize_extrinsics=True, extrinsics_start=500,
+              extrinsics_period=100, extrinsics_pose_iters=25)
 # the library yardstick of the one-level kernels, F.grid_sample, takes its
 # grid in the volume's type: in bf16 the sampling positions themselves are
 # rounded (to 2^-8 of the half width, up to 0.08 px at width 80, on volumes
@@ -765,63 +789,91 @@ def tsdf_phase(dev):
 
 
 def cli_phase(dev):
-    """(e) The slam_demo CLI, --fusion sigma --eval, on the production
-    frames and weights, sequentially; counters zeroed just before it."""
+    """(e) The slam_demo CLI on the production frames and weights,
+    sequentially: --fusion sigma --eval (ATE-RMSE at most ATE_LIMIT_M),
+    then --stereo and --rgbd without a map (finite ATE); counters zeroed
+    just before each run."""
     from nerf_slam_tpu_torch.cli import slam_demo
     from nerf_slam_tpu_torch.ops import corr_lookup
 
-    args = slam_demo.parse_args([
-        "--weights", os.path.join(ROOT, "weights_synthetic.npz"),
-        "--height", str(H), "--width", str(W), "--n_frames", str(N_FRAMES),
-        "--buffer", str(BUFFER), "--fusion", "sigma", "--eval",
-        "--out", os.devnull, "--device", dev.type])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    corr_lookup.reset_launches()
-    res = slam_demo.run(args)
-    launches = dict(corr_lookup.launches)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"(e) CLI --fusion sigma --eval {H}x{W}: {res['n_keyframes']} "
-        f"keyframes of {N_FRAMES} frames, {res['kf_per_s']:.4f} keyframes/s "
-        f"({res['wall_s']:.2f} s), ATE-RMSE {res.get('ate_rmse_m', math.nan):.4f}"
-        f" m, TSDF eval row psnr {res.get('fusion_psnr')} depth_l1_cm "
-        f"{res.get('fusion_depth_l1_cm')}, peak memory {peak:.2f} GiB, "
-        f"launches {launches}")
-    missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
-               if launches[k] <= 0]
-    if missing:
-        raise RuntimeError(f"(e) kernels not launched: {missing}")
-    if not res.get("ate_rmse_m", math.inf) <= ATE_LIMIT_M:
-        raise RuntimeError(f"(e) ATE-RMSE {res.get('ate_rmse_m')} m > "
-                           f"{ATE_LIMIT_M}")
+    for flags in (["--fusion", "sigma", "--eval"],
+                  ["--fusion", "none", "--stereo"],
+                  ["--fusion", "none", "--rgbd"]):
+        args = slam_demo.parse_args([
+            "--weights", os.path.join(ROOT, "weights_synthetic.npz"),
+            "--height", str(H), "--width", str(W), "--n_frames",
+            str(N_FRAMES), "--buffer", str(BUFFER), "--out", os.devnull,
+            "--device", dev.type] + flags)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        corr_lookup.reset_launches()
+        res = slam_demo.run(args)
+        launches = dict(corr_lookup.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ate = res.get("ate_rmse_m", math.nan)
+        tsdf = (f", TSDF eval row psnr {res.get('fusion_psnr')} depth_l1_cm "
+                f"{res.get('fusion_depth_l1_cm')}" if "--eval" in flags
+                else "")
+        log(f"(e) CLI {' '.join(flags)} {H}x{W}: {res['n_keyframes']} "
+            f"keyframes of {N_FRAMES} frames, {res['kf_per_s']:.4f} "
+            f"keyframes/s ({res['wall_s']:.2f} s), ATE-RMSE {ate:.4f} m"
+            f"{tsdf}, peak memory {peak:.2f} GiB, launches {launches}")
+        missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
+                   if launches[k] <= 0]
+        if missing:
+            raise RuntimeError(f"(e) {flags}: kernels not launched: "
+                               f"{missing}")
+        if "--eval" in flags and not ate <= ATE_LIMIT_M:
+            raise RuntimeError(f"(e) ATE-RMSE {ate} m > {ATE_LIMIT_M}")
+        if not math.isfinite(ate):
+            raise RuntimeError(f"(e) {flags}: ATE-RMSE {ate}")
 
 
-def hash_phase(dev, train_set, pe):
-    """(f) The hash-grid NeRF fitted on the sequential run's keyframes,
-    NGP_HORIZON iterations at 4096 rays, evaluated every HASH_EVAL_EVERY;
-    beside the PE field's fit on the same keyframes (``pe``)."""
+def field_digest(fusion) -> str:
+    """sha256 of every parameter's bytes of a NeRF field (host copies)."""
+    h = hashlib.sha256()
+    for name, t in sorted(fusion.field.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def hash_fit(dev, train_set, iters: int):
+    """The hash-grid field fitted on ``train_set`` for ``iters`` iterations
+    at 4096 rays from SEED, evaluated every HASH_EVAL_EVERY.  Returns
+    (fit seconds, losses, rows, the field's digest after each chunk)."""
     from nerf_slam_tpu_torch.fusion import (NerfFusion, NerfFusionConfig,
                                             NGPConfig)
-
     fusion = NerfFusion(NerfFusionConfig(
         buffer=BUFFER, height=H, width=W, batch_rays=4096,
         ngp=NGPConfig(encoding="hash")), seed=SEED, device=dev)
     fusion.train_set = train_set
     fusion.has_data = True
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fit_s, losses, rows = 0.0, [], []
-    for _ in range(NGP_HORIZON // HASH_EVAL_EVERY):
+    fit_s, losses, rows, digests = 0.0, [], [], []
+    for _ in range(iters // HASH_EVAL_EVERY):
         t0 = time.perf_counter()
         loss = fusion.fit_volume(HASH_EVAL_EVERY)
         torch.cuda.synchronize()
         fit_s += time.perf_counter() - t0
         losses.append(float(loss))
+        digests.append(field_digest(fusion))
         rows.append(fusion.evaluate_training_views(max_views=8))
+    return fit_s, losses, rows, digests
+
+
+def hash_phase(dev, train_set, pe, second_iters: int):
+    """(f) The hash-grid NeRF fitted on the sequential run's keyframes,
+    NGP_HORIZON iterations at 4096 rays, evaluated every HASH_EVAL_EVERY;
+    beside the PE field's fit on the same keyframes (``pe``).  A second
+    fit from the same seed, ``second_iters`` iterations, must give the
+    same field bits and losses at every evaluation it reaches."""
+    torch.cuda.reset_peak_memory_stats()
+    fit_s, losses, rows, digests = hash_fit(dev, train_set, NGP_HORIZON)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     psnrs = [r["psnr"] for r in rows]
     log(f"(f) hash-grid NeRF {H}x{W}, {int(train_set.valid.sum())} keyframes:"
-        f" PSNR {', '.join(f'{p:.2f}' for p in psnrs)} dB at iterations "
+        f" PSNR {', '.join(f'{p:.4f}' for p in psnrs)} dB at iterations "
         f"{[r['iteration'] for r in rows]}, loss {losses}, "
         f"{NGP_HORIZON / fit_s:.1f} steps/s, peak memory {peak:.2f} GiB; "
         f"PE field on the same keyframes: PSNR {pe['psnr']:.2f} dB after "
@@ -831,6 +883,143 @@ def hash_phase(dev, train_set, pe):
         raise RuntimeError(f"(f) hash-grid loss not finite: {losses}")
     if not psnrs[-1] > psnrs[0]:
         raise RuntimeError(f"(f) hash-grid PSNR did not rise: {psnrs}")
+    fit2_s, losses2, rows2, digests2 = hash_fit(dev, train_set, second_iters)
+    n = len(digests2)
+    same = digests2 == digests[:n] and losses2 == losses[:n]
+    log(f"(f) second hash-grid fit, {second_iters} iterations from the same "
+        f"seed: {second_iters / fit2_s:.1f} steps/s, PSNR "
+        f"{', '.join('%.4f' % r['psnr'] for r in rows2)} dB; field bits and "
+        f"losses equal to the first fit's at iterations "
+        f"{[r['iteration'] for r in rows2]}: {same}")
+    if not same:
+        raise RuntimeError("(f) the hash-grid fit is not reproducible: a "
+                           "second fit from the same seed differs")
+    return NGP_HORIZON / fit_s
+
+
+def sensor_phase(dev):
+    """(g) the stereo tracker and (h) the RGB-D tracker on the production
+    frames (rendered with the right camera), weights and filters,
+    sequentially, each twice on fresh state.  Returns their launches."""
+    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
+    from nerf_slam_tpu_torch.utils.evaluation import (ate_rmse,
+                                                      trajectory_from_packet,
+                                                      umeyama_alignment)
+    ds = SyntheticDataset(SyntheticConfig(
+        n_frames=N_FRAMES, height=H, width=W, stereo=True,
+        baseline=STEREO_BASELINE))
+    frames = [ds[k] for k in range(N_FRAMES)]
+    rig = tuple(float(v) for v in frames[0]["stereo_rel"])
+    counted = {}
+    # the initialization's graph holds 51 edges with the stereo ones,
+    # more than the main path's 48 slots: (g) gets the CLI's 64
+    for tag, extra in (("g", dict(stereo=True, stereo_rel=rig, e_active=64)),
+                       ("h", dict(rgbd=True))):
+        results = []
+        for run in range(2):
+            frontend, sink, wall, launches = track_only(dev, frames, W, extra)
+            n, st = frontend.kf_idx + 1, frontend.state
+            res = tracker_result(frontend) + (st.features1.cpu(),
+                                              st.idepths_sensed[:n].cpu())
+            results.append(res)
+            if not (torch.isfinite(res[1]).all()
+                    and torch.isfinite(res[2]).all()):
+                raise RuntimeError(f"({tag}) non-finite poses or depths")
+            missing = [k for k in ("corr_lookup_grouped4",
+                                   "corr_lookup_pyramid")
+                       if launches[k] <= 0]
+            if missing:
+                raise RuntimeError(f"({tag}) kernels not launched: "
+                                   f"{missing}")
+            n_stereo = int((frontend.graph.ii == frontend.graph.jj).sum())
+            if tag == "g" and n_stereo == 0:
+                raise RuntimeError("(g) no (i, i) stereo edges in the graph")
+            est, gt = trajectory_from_packet(sink.last_full)
+            if est.shape[0] < 3 or not np.isfinite(est).all():
+                raise RuntimeError(f"({tag}) bad trajectory")
+            scale = umeyama_alignment(est, gt)[2]
+            log(f"({tag}) {extra} {H}x{W} run {run + 1}: {n} keyframes of "
+                f"{N_FRAMES} frames in {wall:.2f} s, {n_stereo} (i, i) edges "
+                f"in the final graph, ATE-RMSE Sim(3)-aligned "
+                f"{ate_rmse(est, gt):.4f} m (scale {scale:.4f}), "
+                f"SE(3)-aligned {ate_rmse(est, gt, align_scale=False):.4f} "
+                f"m, launches {launches}")
+            counted[tag] = launches
+            del frontend, sink
+            torch.cuda.empty_cache()
+        same = same_bits(*results)
+        log(f"({tag}) second run on fresh state bit-identical to the first "
+            f"(keyframes, poses, depths, right features, sensed depths): "
+            f"{same}")
+        if not same:
+            raise RuntimeError(f"({tag}) the tracker is not reproducible")
+    return counted
+
+
+def mapper_phase(dev, train_set, pe):
+    """(i) The PE field with pose refinement, then with depth annealing
+    too, NGP_HORIZON iterations each on the sequential run's keyframes;
+    renders without the occupancy bound and at the dynamic resolution."""
+    from nerf_slam_tpu_torch.fusion import NerfFusion, NerfFusionConfig
+    base = dict(buffer=BUFFER, height=H, width=W, batch_rays=4096)
+    fitted = None
+    for tag, kw in (("pose refinement", REFINE),
+                    ("pose refinement + depth annealing over 1000",
+                     dict(REFINE, depth_anneal_iters=1000))):
+        fusion = NerfFusion(NerfFusionConfig(**base, **kw), seed=SEED,
+                            device=dev)
+        fusion.train_set = train_set
+        fusion.has_data = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(fusion.fit_volume(NGP_HORIZON))
+        torch.cuda.synchronize()
+        steps_s = NGP_HORIZON / (time.perf_counter() - t0)
+        row = fusion.evaluate_training_views(max_views=8)
+        deltas = fusion.pose_deltas.detach()
+        n_views = int(train_set.valid.sum())
+        log(f"(i) PE fit with {tag}, {NGP_HORIZON} iterations: "
+            f"{steps_s:.1f} steps/s (plain fit {pe['steps_s']:.1f}), PSNR "
+            f"{row['psnr']:.4f} dB (plain {pe['psnr']:.4f}), scale-aligned "
+            f"depth L1 {row['depth_l1_aligned_cm']:.4f} cm, loss {loss:.5f},"
+            f" largest pose delta {float(deltas.abs().max()):.6f} "
+            f"(translation {float(deltas[:n_views, :3].abs().max()):.6f}, "
+            f"rotation {float(deltas[:n_views, 3:].abs().max()):.6f} rad)")
+        if not (math.isfinite(loss) and math.isfinite(row["psnr"])
+                and torch.isfinite(deltas).all()):
+            raise RuntimeError(f"(i) {tag}: non-finite loss, PSNR or deltas")
+        if not (float(deltas.abs().max()) > 0 and bool((deltas[0] == 0)
+                                                       .all())):
+            raise RuntimeError(f"(i) {tag}: the poses did not move, or view "
+                               f"0 moved")
+        fitted = fitted or fusion
+    cfg = fitted.cfg
+    cfg.render_accel = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth = fitted.render_training_view(0)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    cfg.render_accel, cfg.dynamic_render_res = True, True
+    fitted._render_ms = {}
+    c2w = train_set.c2w[0].cpu().numpy().copy()
+    c2w[:3, 3] = (c2w[:3, 3] - np.asarray(cfg.offset)) / cfg.scale
+    intr = train_set.intrinsics[0].cpu().numpy()
+    fitted.render_image(c2w, intr)                  # measures scale 1
+    full_ms = fitted._render_ms[1]
+    scale = fitted._pick_render_scale()
+    rgb2, depth2 = fitted.render_image(c2w, intr)
+    log(f"(i) training-view render {H}x{W} without the occupancy bound "
+        f"(render_accel=False): {plain_ms:.2f} ms; free-view render with "
+        f"it at full resolution {full_ms:.2f} ms, then the dynamic "
+        f"resolution's pick for {cfg.render_target_ms} ms: scale {scale}, "
+        f"{fitted._render_ms[scale]:.2f} ms (host clock, synced)")
+    for a in (rgb, depth, rgb2, depth2):
+        if not np.isfinite(np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                           ).all():
+            raise RuntimeError("(i) a render is not finite")
+    if tuple(np.asarray(depth2).shape) != (H, W):
+        raise RuntimeError(f"(i) the dynamic render is {depth2.shape}")
 
 
 def main() -> int:
@@ -870,11 +1059,16 @@ def main() -> int:
     launches, train_set, pe = pipeline_phase(dev)
     torch.cuda.empty_cache()
     launches.update(path_phase(dev))
+    sensor_phase(dev)
+    torch.cuda.empty_cache()
     tsdf_phase(dev)
     torch.cuda.empty_cache()
     cli_phase(dev)
     torch.cuda.empty_cache()
-    hash_phase(dev, train_set, pe)
+    # the second fit is held to the first's bits over its first chunk
+    hash_phase(dev, train_set, pe, HASH_EVAL_EVERY)
+    torch.cuda.empty_cache()
+    mapper_phase(dev, train_set, pe)
     for e in entries:
         e["launches"] = launches[e["name"]]
     log(f"chip_smoke: all phases passed in "

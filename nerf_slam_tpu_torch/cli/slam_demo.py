@@ -7,18 +7,21 @@ The JAX package's ``cli/slam_demo.py`` with the same flags and defaults:
 dataset, keyframe buffer, stride, map backend (``--fusion nerf`` the
 depth-supervised radiance field, ``sigma`` the uncertainty-weighted TSDF,
 ``tsdf`` the unweighted one, ``none``), sequential or ``--parallel_run``
-(one thread per stage on one card).  It prints one JSON line: wall time,
-keyframes and keyframes/s, each stage's mean spin time, ATE-RMSE against
-ground truth and, under ``--eval``, the map's evaluation row.
+(one thread per stage on one card).  ``--stereo`` tracks with the
+dataset's right camera and the rig pose its packets carry (``stereo_rel``),
+``--rgbd`` seeds metric inverse depths from the packets' depths.  It
+prints one JSON line: wall time, keyframes and keyframes/s, each stage's
+mean spin time, ATE-RMSE against ground truth and, under ``--eval``, the
+map's evaluation row.
 
 It runs on the GPU; ``--device cpu`` (the one flag the JAX CLI lacks)
 runs it on the CPU, for the tests.  Features the port does not have yet
-raise, naming the ROADMAP.md item they wait for: ``--stereo`` and
-``--rgbd`` (§1.12), ``--vio`` (§1.13), ``--edge_shards`` > 1 and
-``--device_split`` (§1.15), ``--gui`` and ``--viewer_port`` (§1.16),
-``--profile`` (§1.9, utils.runtime), a ``.pth`` weights file (§1.4:
-``droid.pth`` conversion), and datasets other than the synthetic room
-(§1.9).
+raise, naming by its title the item of ROADMAP.md's module queue they
+wait for: ``--vio`` ("VIO"), ``--edge_shards`` > 1 and ``--device_split``
+("parallel/"), ``--gui`` and ``--viewer_port`` ("gui/"), ``--profile``
+and datasets other than the synthetic room ("The other datasets and
+utils"), and a ``.pth`` weights file ("Training": the ``droid.pth``
+conversion).
 """
 from __future__ import annotations
 
@@ -82,16 +85,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-# flags whose features are not ported: (attribute, refused when, ROADMAP item)
+# flags whose features are not ported: (attribute, refused when, the title
+# of the ROADMAP.md item that ports them)
 _REFUSED = (
-    ("stereo", bool, "§1.12 (stereo tracking)"),
-    ("rgbd", bool, "§1.12 (RGB-D tracking)"),
-    ("vio", bool, "§1.13 (VIO)"),
-    ("gui", bool, "§1.16 (gui)"),
-    ("viewer_port", bool, "§1.16 (gui/viewer)"),
-    ("device_split", bool, "§1.15 (parallel/)"),
-    ("profile", bool, "§1.9 (utils.runtime)"),
-    ("edge_shards", lambda n: n > 1, "§1.15 (edge-sharded tracking)"),
+    ("vio", bool, "VIO"),
+    ("gui", bool, "gui/"),
+    ("viewer_port", bool, "gui/"),
+    ("device_split", bool, "parallel/"),
+    ("profile", bool, "The other datasets and utils (utils/runtime)"),
+    ("edge_shards", lambda n: n > 1, "parallel/"),
 )
 
 
@@ -100,11 +102,11 @@ def check_args(args) -> None:
     for name, refused, item in _REFUSED:
         if refused(getattr(args, name)):
             raise NotImplementedError(
-                f"--{name} is not ported yet: ROADMAP.md {item}")
+                f"--{name} is not ported yet: ROADMAP.md, module {item}")
     if args.weights and not args.weights.endswith(".npz"):
         raise NotImplementedError(
-            "only .npz weights load: droid.pth conversion is not ported "
-            "yet (ROADMAP.md §1.4)")
+            "only .npz weights load: the droid.pth conversion is not "
+            "ported yet: ROADMAP.md, module Training")
 
 
 def build_dataset(args):
@@ -112,12 +114,14 @@ def build_dataset(args):
     return factory(args.dataset_name, args.dataset_dir,
                    n_frames=args.n_frames, height=args.height,
                    width=args.width, initial_k=args.initial_k,
-                   final_k=args.final_k, buffer=args.buffer)
+                   final_k=args.final_k, buffer=args.buffer,
+                   stereo=args.stereo)
 
 
-def build_frontend(args, image_size):
+def build_frontend(args, image_size, stereo_rel=None):
     """The tracker with the ``--weights`` .npz (and its damping sidecar)
-    or random weights drawn from ``--seed``."""
+    or random weights drawn from ``--seed``; ``--stereo`` with the rig pose
+    ``stereo_rel`` (cam1_T_cam0, the dataset's), ``--rgbd``."""
     from ..models import DroidNet, load_flax_weights
     from ..tracking import FrontendConfig, RaftVisualFrontend
     from ..utils.checkpoint import load_arrays
@@ -139,9 +143,12 @@ def build_frontend(args, image_size):
             net = DroidNet(dtype=dtype)
         print("WARNING: no --weights given; using random network weights "
               "(tracking quality will be poor)")
+    if args.stereo and stereo_rel is not None:
+        damping_kw["stereo_rel"] = tuple(float(v) for v in stereo_rel)
     cfg = FrontendConfig(buffer=args.buffer, p_window=min(args.buffer, 32),
                          k_depth=min(args.buffer + 8, 40),
-                         global_ba=args.global_ba, **damping_kw)
+                         global_ba=args.global_ba, stereo=args.stereo,
+                         rgbd=args.rgbd, **damping_kw)
     return RaftVisualFrontend(net, cfg, image_size, device=dev)
 
 
@@ -170,8 +177,14 @@ def run(args) -> dict:
 
     check_args(args)
     dataset = build_dataset(args)
-    image_size = dataset[0]["images"].shape[:2]
-    frontend = build_frontend(args, image_size)
+    probe = dataset[0]
+    image_size = probe["images"].shape[:2]
+    if args.stereo and probe.get("images_right") is None:
+        raise ValueError("--stereo needs a dataset providing images_right")
+    # the rig calibration rides the packets (cam1_T_cam0 7-vector)
+    frontend = build_frontend(args, image_size,
+                              probe.get("stereo_rel") if args.stereo
+                              else None)
     fusion, fusion_mode = build_fusion(args)
 
     data_m = DataModule(dataset, img_stride=args.img_stride)

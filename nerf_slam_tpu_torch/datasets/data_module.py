@@ -1,6 +1,7 @@
 """Dataset factory, the port of the JAX package's
 ``datasets/data_module.py``.  Only the synthetic room is ported; the
-other datasets wait for ROADMAP.md §1.9."""
+other datasets wait for the ROADMAP.md module "The other datasets and
+utils"."""
 from __future__ import annotations
 
 from typing import Optional
@@ -19,5 +20,6 @@ def build_dataset(dataset_name: str, dataset_dir: Optional[str] = None,
         return SyntheticDataset(SyntheticConfig(**cfg_kw))
     if dataset_name in _NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {dataset_name!r} is not ported yet: ROADMAP.md §1.9")
+            f"dataset {dataset_name!r} is not ported yet: ROADMAP.md, "
+            f"module The other datasets and utils")
     raise ValueError(f"unknown dataset {dataset_name!r}")

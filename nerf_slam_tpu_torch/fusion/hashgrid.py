@@ -3,14 +3,18 @@
 The port of the JAX package's ``fusion/hashgrid.py``: all levels share one
 flat gather per trilinear corner, and the backward is the JAX package's
 hand-written VJP written out as a ``torch.autograd.Function`` (a gather
-forward; an ``index_add_`` of the table gradient and the explicit
+forward; a fixed-order scatter of the table gradient and the explicit
 position gradient).  Defaults follow instant-ngp's base.json: 16 levels
 x 2 features, a 2^19 table, base resolution 16, finest about 2048.
 
 The hash encode is no TPU kernel: the JAX package writes it in plain
-jnp, so its port is plain PyTorch.  On the card ``index_add_`` adds with
-atomics in an order that changes between runs, so hash-grid mapping is
-not bit-reproducible (the tracker never reads the map).
+jnp, so its port is plain PyTorch.  The table gradient adds many corner
+contributions into each table row.  ``index_add_`` would add them with
+atomics on the card, in an order that changes between runs, so that no
+two fits gave the same bits; :func:`_scatter_rows` adds each row's
+contributions one after another in the order the JAX VJP scatters them
+(corner by corner, then level, then point), with no atomics, so a fit
+repeats to the bit.
 
 The JAX hash works in wrapping uint32 products.  Here the low
 ``log2_table_size`` bits of the XOR, the only ones kept, depend only on
@@ -106,10 +110,27 @@ def _corner_indices_weights(pos_flat: torch.Tensor, cfg: HashGridConfig):
     return idx.reshape(8, -1), cw, w
 
 
+def _scatter_rows(idx: torch.Tensor, vals: torch.Tensor,
+                  n_rows: int) -> torch.Tensor:
+    """(n_rows, F) table whose row r is the sum of the rows of ``vals``
+    (K, F) with ``idx == r``, each row's terms added one after another in
+    their order in ``idx``, starting from 0.  A stable sort groups the
+    terms by row and keeps their order within it; ``searchsorted`` gives
+    every table row's run (empty for untouched rows), and
+    ``segment_reduce`` sums each run in sequence (one thread a (row,
+    feature) on the card).  No step adds with atomics and none waits for
+    the host, so the same inputs give the same bits on every call."""
+    sidx, perm = torch.sort(idx, stable=True)
+    rows = torch.arange(n_rows + 1, dtype=sidx.dtype, device=sidx.device)
+    offsets = torch.searchsorted(sidx, rows)
+    return torch.segment_reduce(vals[perm], "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+
+
 class _EncodeFlat(torch.autograd.Function):
     """(L, T, F) table + (N, 3) positions -> (N, L*F) features, with the
     JAX package's explicit backward (all eight corners in one gather and
-    one scatter-add)."""
+    one fixed-order scatter)."""
 
     @staticmethod
     def forward(ctx, table, pos_flat, cfg):
@@ -136,11 +157,9 @@ class _EncodeFlat(torch.autograd.Function):
         dtable = dpos = None
         if want_table:
             # g * cw scattered at the corner entries
-            dtf = torch.zeros((L * T, F), dtype=table.dtype,
-                              device=table.device)
-            dtf.index_add_(0, idx.reshape(-1),
-                           (cw[..., None] * gl).reshape(-1, F))
-            dtable = dtf.reshape(L, T, F)
+            dtable = _scatter_rows(idx.reshape(-1),
+                                   (cw[..., None] * gl).reshape(-1, F),
+                                   L * T).reshape(L, T, F)
         if want_pos:
             # d(cw)/dw per axis: +/- the product of the other two axes'
             # weights, times the level's resolution
@@ -173,8 +192,8 @@ def encode(table: torch.Tensor, pos: torch.Tensor,
 def encode_chunked(table: torch.Tensor, pos: torch.Tensor,
                    cfg: HashGridConfig, chunk: int) -> torch.Tensor:
     """:func:`encode` over chunks of ``chunk`` points (each gather and
-    scatter-add then touches at most ``chunk * n_levels`` rows); autograd
-    sums the chunks' table gradients.  ``chunk <= 0``: one chunk."""
+    scatter then touches at most ``chunk * n_levels`` rows); autograd sums
+    the chunks' table gradients.  ``chunk <= 0``: one chunk."""
     lead = pos.shape[:-1]
     flat = pos.reshape(-1, 3)
     if chunk <= 0 or flat.shape[0] <= chunk:

@@ -8,9 +8,13 @@ weighted by the SLAM depth variance (``mask_type="ours"``; "raw",
 sRGB->linear targets, per-spin training (``fit_volume``) with Adam, on
 the field ``NGPConfig.encoding`` names (the PE MLP or the hash grid), and
 evaluation at the training views (PSNR, depth L1; a results row every
-``eval_every`` iterations), rendered with occupancy-bounded samples;
-free-view renders and a density mesh.  Mapping-time pose refinement
-(``optimize_extrinsics``) is not ported yet (ROADMAP.md §1.12).
+``eval_every`` iterations), rendered with occupancy-bounded samples
+(``render_accel``, or the plain 128-sample render) at a resolution that
+may adapt to a time budget (``dynamic_render_res``); free-view renders
+and a density mesh.  Options off by default, as in the JAX package:
+mapping-time pose refinement (``optimize_extrinsics``: per-view SE(3)
+deltas on the training poses with their own Adam, in coordinate descent
+with the field) and depth-supervision annealing (``depth_anneal_iters``).
 
 Scene coordinates are normalized into the unit cube by
 ``(world * scale + offset)``; a ray's parameter t equals the camera
@@ -71,12 +75,35 @@ class NerfFusionConfig:
     eval_every: int = 0               # iterations between results rows
                                       # (0: none; the CLI's --eval sets 200)
     eval_views: int = 8               # views per results row
-    optimize_extrinsics: bool = False  # not ported (ROADMAP.md §1.12)
+    # mapping-time pose refinement: per-view SE(3) deltas (right
+    # perturbations of the training c2w) with their own Adam.  After
+    # ``extrinsics_start`` iterations every ``extrinsics_period``-iteration
+    # cycle ends with ``extrinsics_pose_iters`` POSE-ONLY steps (field
+    # frozen); view 0 stays pinned (the map's gauge)
+    optimize_extrinsics: bool = False
+    extrinsics_lr: float = 1e-3
+    extrinsics_start: int = 500
+    extrinsics_period: int = 100
+    extrinsics_pose_iters: int = 25
+    # occupancy-bounded render (``render_samples`` samples a ray inside
+    # the occupied span of an ``occ_res``^3 sigma grid); False: 128
+    # samples spread over [near, far]
+    render_accel: bool = True
     render_rows_per_chunk: int = 40
     occ_res: int = 64
     occ_thresh: float = 4.0
     occ_refresh_every: int = 200
     render_samples: int = 48
+    # dynamic render resolution: free-view renders at the smallest
+    # downscale (1, 2 or 4) whose measured render time fits
+    # ``render_target_ms``, upsampled back to the full frame
+    render_target_ms: float = 66.0
+    dynamic_render_res: bool = False
+    # depth-supervision annealing: the depth weight goes linearly from 1
+    # to ``depth_anneal_floor`` over ``depth_anneal_iters`` iterations,
+    # then stays there (0: off)
+    depth_anneal_iters: int = 0
+    depth_anneal_floor: float = 0.25
 
 
 @dataclass
@@ -98,16 +125,25 @@ class Batch(NamedTuple):
     samples: tuple             # draw_ray_samples(R, ...)
 
 
+_RENDER_SCALES = (1, 2, 4)
+
+
+def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
 class NerfFusion:
     """Mapping module.  ``device``: where the field, optimizer and
-    training set live (CUDA unless the caller asks for the CPU)."""
+    training set live (CUDA unless the caller asks for the CPU).
+
+    Both optimizers step on every iteration, as the JAX package's do:
+    a phase that freezes the field (or the poses) runs its Adam at rate 0,
+    so its moments and step count still advance while its parameters keep
+    their bits (JAX multiplies the updates by 0 after the Adam update)."""
 
     def __init__(self, cfg: NerfFusionConfig, seed: int = 0,
                  device="cuda"):
-        if cfg.optimize_extrinsics:
-            raise NotImplementedError(
-                "optimize_extrinsics (mapping-time pose refinement) is not "
-                "ported yet: ROADMAP.md §1.12")
         if cfg.mask_type not in MASK_TYPES:
             raise ValueError(f"unknown mask_type {cfg.mask_type!r}")
         self.cfg = cfg
@@ -120,10 +156,17 @@ class NerfFusion:
         cfg, dev = self.cfg, self.device
         init_gen = torch.Generator().manual_seed(self._seed)
         self.field = init_ngp(cfg.ngp, generator=init_gen).to(dev)
-        lr = cfg.ngp.pe_lr if cfg.ngp.encoding == "pe" else cfg.ngp.lr
-        self.opt = torch.optim.Adam(self.field.parameters(), lr=lr,
+        self._lr = cfg.ngp.pe_lr if cfg.ngp.encoding == "pe" else cfg.ngp.lr
+        self.opt = torch.optim.Adam(self.field.parameters(), lr=self._lr,
                                     betas=(0.9, 0.99), eps=1e-15)
         N, H, W = cfg.buffer, cfg.height, cfg.width
+        # per-view SE(3) deltas [v, w] and their Adam (optax.adam's
+        # defaults: b2 0.999, eps 1e-8)
+        self.pose_deltas = torch.zeros((N, 6), device=dev,
+                                       requires_grad=True)
+        self.pose_opt = torch.optim.Adam([self.pose_deltas],
+                                         lr=cfg.extrinsics_lr,
+                                         betas=(0.9, 0.999), eps=1e-8)
 
         def full(shape, v):
             return torch.full(shape, v, dtype=torch.float32, device=dev)
@@ -142,6 +185,7 @@ class NerfFusion:
         self._t0 = None
         self._occ_mask = None
         self._occ_iter = -1
+        self._render_ms = {}       # EMA ms of a full render, by scale
 
     # ------------------------------------------------------------------
     # data ingestion
@@ -207,6 +251,9 @@ class NerfFusion:
         ts.gt_depths[ids] = torch.where(gtd > 0, gtd * s, -1.0)
         ts.intrinsics[ids] = intrinsics.float()
         ts.valid[ids] = 1.0
+        if cfg.optimize_extrinsics:
+            # fresh SLAM poses supersede refined deltas for these views
+            self.pose_deltas[ids] = 0.0
         self.has_data = True
         if self._t0 is None:
             self._t0 = time.time()
@@ -248,9 +295,37 @@ class NerfFusion:
         return Batch(img_idx, uv,
                      draw_ray_samples(R, cfg.ngp, g, self.device))
 
-    def loss(self, batch: Batch):
-        """Sigma-weighted depth + RGB + opacity loss of one batch.
-        Returns (loss, l_rgb, l_depth)."""
+    def _refined_c2w(self, deltas: torch.Tensor,
+                     c2w: torch.Tensor) -> torch.Tensor:
+        """Apply per-view SE(3) right perturbations (N, 6) to c2w (N, 4,
+        4)."""
+        return c2w @ se3.matrix(se3.exp(deltas))
+
+    def _schedule(self, it: int):
+        """(pose_enable, field_enable, depth_mult) of iteration ``it``: the
+        coordinate-descent phase (pose-only at the end of each cycle once
+        refinement has started) and the depth-annealing multiplier, in f32
+        as the JAX package computes it."""
+        cfg = self.cfg
+        pose = 0.0
+        if cfg.optimize_extrinsics and it >= cfg.extrinsics_start:
+            cyc = (it - cfg.extrinsics_start) % cfg.extrinsics_period
+            pose = float(cyc >= cfg.extrinsics_period
+                         - cfg.extrinsics_pose_iters)
+        mult = 1.0
+        if cfg.depth_anneal_iters > 0:
+            f32 = np.float32
+            frac = np.clip(f32(it) / f32(cfg.depth_anneal_iters), f32(0),
+                           f32(1))
+            mult = float(f32(1) + f32(cfg.depth_anneal_floor - 1.0) * frac)
+        return pose, 1.0 - pose, mult
+
+    def loss(self, batch: Batch, depth_mult: float = 1.0,
+             pose_grad: bool = True):
+        """Sigma-weighted depth + RGB + opacity loss of one batch, the depth
+        terms scaled by ``depth_mult``; under ``optimize_extrinsics`` the
+        rays leave the refined poses (differentiable in the deltas when
+        ``pose_grad``).  Returns (loss, l_rgb, l_depth)."""
         cfg, ts = self.cfg, self.train_set
         ngp = cfg.ngp
         img_idx = batch.img_idx
@@ -263,7 +338,12 @@ class NerfFusion:
         tgt_depth = ts.depths[img_idx, yi, xi]
         tgt_cov = ts.depths_cov[img_idx, yi, xi]
         d_valid = (tgt_depth > 0).float()
-        c2w = ts.c2w[img_idx]
+        if cfg.optimize_extrinsics:
+            deltas = self.pose_deltas if pose_grad \
+                else self.pose_deltas.detach()
+            c2w = self._refined_c2w(deltas, ts.c2w)[img_idx]
+        else:
+            c2w = ts.c2w[img_idx]
         # unit-z camera dirs, unnormalized: t is the normalized z-depth
         dirs = torch.einsum("rij,rj->ri", c2w[:, :3, :3], dirs_cam)
         origins = c2w[:, :3, 3]
@@ -277,16 +357,33 @@ class NerfFusion:
         nv = torch.clamp(d_valid.sum(), min=1.0)
         l_d = (w * (depth - tgt_depth) ** 2).sum() / nv
         l_acc = (d_valid * (1.0 - acc) ** 2).sum() / nv
-        loss = ngp.rgb_weight * l_rgb + ngp.depth_weight * (l_d + l_acc)
+        loss = (ngp.rgb_weight * l_rgb
+                + ngp.depth_weight * depth_mult * (l_d + l_acc))
         return loss, l_rgb, l_d
 
     def train_step(self, batch: Optional[Batch] = None) -> torch.Tensor:
-        """One Adam step; returns the loss as a device scalar."""
+        """One step of iteration ``self.iteration``'s schedule: the field's
+        Adam and, under ``optimize_extrinsics``, the poses' (view 0's
+        gradient pinned to 0).  Outside the pose-only steps the poses' Adam
+        gets a zero gradient, as JAX's product of the gradient with 0 gives
+        it, without the backward through the rays that computes one.
+        Returns the loss as a device scalar."""
+        cfg = self.cfg
+        pose_on, field_on, mult = self._schedule(self.iteration)
         batch = self.draw_batch() if batch is None else batch
         self.opt.zero_grad(set_to_none=True)
-        loss, _, _ = self.loss(batch)
+        self.pose_deltas.grad = None
+        loss, _, _ = self.loss(batch, depth_mult=mult,
+                               pose_grad=pose_on > 0)
         loss.backward()
+        _set_lr(self.opt, self._lr * field_on)
         self.opt.step()
+        if cfg.optimize_extrinsics:
+            if self.pose_deltas.grad is None:
+                self.pose_deltas.grad = torch.zeros_like(self.pose_deltas)
+            self.pose_deltas.grad[0] = 0.0
+            _set_lr(self.pose_opt, cfg.extrinsics_lr * pose_on)
+            self.pose_opt.step()
         return loss.detach()
 
     def fit_volume(self, iters: Optional[int] = None):
@@ -323,11 +420,14 @@ class NerfFusion:
 
     @torch.no_grad()
     def render_rows(self, c2w: torch.Tensor, intr: torch.Tensor, ys,
-                    gen: torch.Generator):
-        """Render image rows ``ys`` at a normalized-frame pose.  Returns
-        (linear rgb (n, W, 3), depth (n, W), acc (n, W))."""
+                    gen: torch.Generator, width: Optional[int] = None):
+        """Render image rows ``ys`` of a ``width``-wide image (default the
+        fusion width) at a normalized-frame pose: occupancy-bounded samples
+        under ``render_accel`` once the field has trained, else 128 samples
+        spread over the ray.  Returns (linear rgb (n, W, 3), depth (n, W),
+        acc (n, W))."""
         cfg = self.cfg
-        W = cfg.width
+        W = cfg.width if width is None else width
         fx, fy, cx, cy = intr.unbind(-1)
         yy, xx = torch.meshgrid(ys.float(), torch.arange(
             W, dtype=torch.float32, device=self.device), indexing="ij")
@@ -336,7 +436,7 @@ class NerfFusion:
         dirs = dirs_cam.reshape(-1, 3) @ c2w[:3, :3].T
         origins = c2w[:3, 3].expand(dirs.shape)
         R = dirs.shape[0]
-        if self.iteration > 0:           # occupancy-bounded samples
+        if cfg.render_accel and self.iteration > 0:
             t_lo, t_hi, _ = ray_occ_interval(self._ensure_occ(), origins,
                                              dirs, cfg.ngp)
             u = torch.rand((R, cfg.render_samples), generator=gen,
@@ -353,30 +453,71 @@ class NerfFusion:
         return rgb.reshape(n, W, 3), depth.reshape(n, W), acc.reshape(n, W)
 
     @torch.no_grad()
-    def _render_normalized(self, c2w: torch.Tensor, intr: torch.Tensor):
-        """Render at a pose in the normalized map frame.  Returns (sRGB
-        rgb (H, W, 3) in [0, 1], depth (H, W) normalized units)."""
+    def _render_normalized(self, c2w: torch.Tensor, intr: torch.Tensor,
+                           scale: int = 1):
+        """Render at a pose in the normalized map frame; ``scale`` > 1
+        renders (H/s, W/s) and repeats each pixel back to the full frame.
+        Keeps an average of each scale's render time (the device's, read
+        on the host after a sync).  Returns (sRGB rgb (H, W, 3) in [0, 1],
+        depth (H, W) normalized units)."""
         cfg = self.cfg
+        H, W = cfg.height, cfg.width
+        h, w = -(-H // scale), -(-W // scale)
+        intr = intr / scale
         gen = torch.Generator(device=self.device).manual_seed(0)
+        t0 = time.perf_counter()
         rgb, depth = [], []
-        for y0 in range(0, cfg.height, cfg.render_rows_per_chunk):
-            ys = torch.arange(y0, min(y0 + cfg.render_rows_per_chunk,
-                                      cfg.height), device=self.device)
-            r, d, _ = self.render_rows(c2w, intr, ys, gen)
+        for y0 in range(0, h, cfg.render_rows_per_chunk):
+            ys = torch.arange(y0, min(y0 + cfg.render_rows_per_chunk, h),
+                              device=self.device)
+            r, d, _ = self.render_rows(c2w, intr, ys, gen, width=w)
             rgb.append(r)
             depth.append(d)
         rgb = torch.clamp(linear_to_srgb(torch.cat(rgb)), 0.0, 1.0)
-        return rgb, torch.cat(depth)
+        depth = torch.cat(depth)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        prev = self._render_ms.get(scale)
+        self._render_ms[scale] = ms if prev is None else 0.8 * prev + 0.2 * ms
+        if scale > 1:
+            rgb = rgb.repeat_interleave(scale, 0).repeat_interleave(
+                scale, 1)[:H, :W]
+            depth = depth.repeat_interleave(scale, 0).repeat_interleave(
+                scale, 1)[:H, :W]
+        return rgb, depth
+
+    def _pick_render_scale(self) -> int:
+        """Under ``dynamic_render_res``: the smallest downscale whose
+        measured (or, from another scale's time, quadratically
+        extrapolated) render time fits ``render_target_ms``; else 1."""
+        if not self.cfg.dynamic_render_res:
+            return 1
+        budget = self.cfg.render_target_ms
+        for s in _RENDER_SCALES:
+            ms = self._render_ms.get(s)
+            if ms is None and self._render_ms:
+                s0, v0 = next(iter(self._render_ms.items()))
+                ms = v0 * (s0 * s0) / (s * s)
+            if ms is None or ms <= budget:
+                return s
+        return _RENDER_SCALES[-1]
 
     def render_training_view(self, i: int):
-        """Render training view i in the map's own frame (see
-        :meth:`_render_normalized`)."""
+        """Render training view i at its (refined) pose in the map's own
+        frame (see :meth:`_render_normalized`)."""
         ts = self.train_set
-        return self._render_normalized(ts.c2w[i], ts.intrinsics[i])
+        c2w = ts.c2w[i]
+        if self.cfg.optimize_extrinsics:
+            with torch.no_grad():
+                c2w = self._refined_c2w(self.pose_deltas[i:i + 1],
+                                        ts.c2w[i:i + 1])[0]
+        return self._render_normalized(c2w, ts.intrinsics[i])
 
     def render_image(self, c2w_world, intrinsics):
-        """Full-frame render at a world-frame c2w pose.  Returns numpy
-        (sRGB rgb (H, W, 3), depth (H, W) in world units)."""
+        """Full-frame render at a world-frame c2w pose (at the dynamic
+        resolution's scale when that is on).  Returns numpy (sRGB rgb (H,
+        W, 3), depth (H, W) in world units)."""
         cfg = self.cfg
         c2w = torch.as_tensor(np.asarray(c2w_world, np.float32),
                               device=self.device).clone()
@@ -384,7 +525,8 @@ class NerfFusion:
             cfg.offset, dtype=torch.float32, device=self.device)
         intr = torch.as_tensor(np.asarray(intrinsics, np.float32),
                                device=self.device)
-        rgb, depth = self._render_normalized(c2w, intr)
+        rgb, depth = self._render_normalized(
+            c2w, intr, scale=self._pick_render_scale())
         return rgb.cpu().numpy(), depth.cpu().numpy() / cfg.scale
 
     @torch.no_grad()

@@ -71,16 +71,28 @@ def actp(Gij: torch.Tensor, X0: torch.Tensor, jacobian: bool = False):
     return X1, Ja.reshape(Ja.shape[:-1] + (4, 6))
 
 
+def _edge_poses(poses, ii, jj, stereo_rel):
+    """(E, 7) relative poses of the edges; with a rig pose ``stereo_rel``
+    (7,) cam1_T_cam0, the STEREO edges (ii == jj) take it instead."""
+    Gij = se3.relpose(poses[ii], poses[jj])
+    if stereo_rel is None:
+        return Gij
+    rig = torch.as_tensor(stereo_rel, dtype=Gij.dtype, device=Gij.device)
+    return torch.where((ii == jj)[:, None], rig[None, :], Gij)
+
+
 def projective_transform(poses, disps, intrinsics, ii, jj,
-                         jacobian: bool = False):
+                         jacobian: bool = False, stereo_rel=None):
     """Map pixels of keyframes ii into keyframes jj.
 
     Returns (coords (E,H,W,2), valid (E,H,W,1), (Ji, Jj, Jz)) where Ji/Jj
     are (E,H,W,2,6) Jacobians wrt left perturbations of cam_T_world[ii] /
     cam_T_world[jj] and Jz (E,H,W,2,1) is wrt the source inverse depth.
+    ``stereo_rel``: optional (7,) rig pose cam1_T_cam0; edges with ii ==
+    jj are stereo edges whose relative pose is pinned to it.
     """
     X0 = iproj(disps[ii], intrinsics[ii])
-    Gij = se3.relpose(poses[ii], poses[jj])
+    Gij = _edge_poses(poses, ii, jj, stereo_rel)
     X1, Ja = actp(Gij, X0, jacobian=jacobian)
     x1, Jp = proj(X1, intrinsics[jj], jacobian=jacobian)
     valid = ((X1[..., 2] > MIN_DEPTH) & (X0[..., 2] > MIN_DEPTH))
@@ -95,10 +107,12 @@ def projective_transform(poses, disps, intrinsics, ii, jj,
     return x1, valid, (Ji, Jj, Jz)
 
 
-def projective_transform_cm(poses, disps, intrinsics, ii, jj):
+def projective_transform_cm(poses, disps, intrinsics, ii, jj,
+                            stereo_rel=None):
     """Channel-major projective transform with analytic Jacobians (the DBA
     linearization's layout): returns coords (E,2,HW), valid (E,1,HW),
-    Ji (E,6,2,HW), Jj (E,6,2,HW), Jz (E,2,HW)."""
+    Ji (E,6,2,HW), Jj (E,6,2,HW), Jz (E,2,HW).  ``stereo_rel`` as in
+    :func:`projective_transform`."""
     E = ii.shape[0]
     ht, wd = disps.shape[-2:]
     HW = ht * wd
@@ -111,7 +125,7 @@ def projective_transform_cm(poses, disps, intrinsics, ii, jj):
     X0x = (gx - cx_i) / fx_i
     X0y = (gy - cy_i) / fy_i
 
-    Gij = se3.relpose(poses[ii], poses[jj])
+    Gij = _edge_poses(poses, ii, jj, stereo_rel)
     t = Gij[:, :3]
     R = se3.quat_to_matrix(Gij[:, 3:7])
     tc = [t[:, k][:, None] for k in range(3)]

@@ -14,13 +14,21 @@ How: one f32 matrix product of the (n_seg, E) one-hot of the ids with the
 products are exact (a block times 1 or 0), so the only rounding is the
 f32 accumulation, and the result is rounded once to the input's dtype.
 The work is n_seg x E x F, a few GEMMs per tracker iteration; the host
-launches five kernels a call, which matters more to the eager tracker.
+launches about fifteen kernels a call, which matters more to the eager
+tracker.  The product runs in full f32 under PyTorch's default (TF32 off
+for f32 matmuls; bf16 blocks are exact in TF32 either way).
 
-The product runs in full f32 under PyTorch's default (TF32 off for f32
-matmuls; bf16 blocks are exact in TF32 either way).  Blocks must be
-finite: a non-finite block meets the other segments' zero weights and
-makes every sum non-finite, where a scatter would keep it in its own
-segment.  The tracker's blocks are finite, padded edges included.
+Non-finite values follow ``jax.ops.segment_sum``.  A row whose id lies
+outside [0, n_seg) contributes nothing, NaN and inf included; a
+non-finite value in a kept row stays in its own segment and column, with
+IEEE addition's result (NaN stays NaN, +inf plus -inf is NaN).  In the
+product a non-finite block would meet the other segments' zero weights
+(inf * 0 = NaN) and reach every segment, so the product runs on the
+blocks with their non-finite entries replaced by 0 (``torch.where``; on
+finite blocks these are the same values, so the same bits as a plain
+product), and a second product of the same one-hot counts, exactly in
+f32, the NaN, +inf and -inf entries of each (segment, column); only the
+columns with a non-zero count are overwritten.
 """
 from __future__ import annotations
 
@@ -35,14 +43,22 @@ def _sums(x: torch.Tensor, ids: torch.Tensor, n_seg: int
     ...) by id in [0, n_seg); ids < 0 (or >= n_seg) match no segment."""
     hit = ids[None, :] == torch.arange(n_seg, device=ids.device)[:, None]
     flat = x.reshape(x.shape[0], -1).to(torch.float32)
-    return hit.to(torch.float32) @ flat, hit
+    onehot = hit.to(torch.float32)
+    sums = onehot @ torch.where(torch.isfinite(flat), flat, 0.0)
+    inf = float("inf")
+    counts = onehot @ torch.cat([torch.isnan(flat), flat == inf,
+                                 flat == -inf], dim=1).to(torch.float32)
+    n_nan, n_pos, n_neg = (c > 0 for c in counts.split(flat.shape[1], 1))
+    sums = torch.where(n_pos, inf, torch.where(n_neg, -inf, sums))
+    sums = torch.where(n_nan | (n_pos & n_neg), float("nan"), sums)
+    return sums, hit
 
 
 def segment_sum(x: torch.Tensor, ids: torch.Tensor,
                 n_seg: int) -> torch.Tensor:
-    """Sum the (E, ...) blocks of ``x`` by segment id in [0, n_seg); ids <
-    0 are dropped, empty segments are 0.  Accumulates in f32 and rounds
-    once to x's dtype.  Returns (n_seg, ...)."""
+    """Sum the (E, ...) blocks of ``x`` by segment id in [0, n_seg); ids
+    outside it are dropped, empty segments are 0.  Accumulates in f32 and
+    rounds once to x's dtype.  Returns (n_seg, ...)."""
     sums, _ = _sums(x, ids, n_seg)
     return sums.to(x.dtype).reshape((n_seg,) + tuple(x.shape[1:]))
 
@@ -50,8 +66,8 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor,
 def segment_mean(x: torch.Tensor, ids: torch.Tensor,
                  n_seg: int) -> torch.Tensor:
     """Mean of the (E, ...) blocks of ``x`` per segment id in [0, n_seg);
-    ids < 0 are dropped, empty segments are 0.  The sum and the division
-    by the count are f32, rounded once to x's dtype."""
+    ids outside it are dropped, empty segments are 0.  The sum and the
+    division by the count are f32, rounded once to x's dtype."""
     sums, hit = _sums(x, ids, n_seg)
     count = torch.clamp(hit.sum(1, keepdim=True), min=1)
     return (sums / count).to(x.dtype).reshape((n_seg,) + tuple(x.shape[1:]))

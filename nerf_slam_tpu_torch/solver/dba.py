@@ -151,13 +151,18 @@ def kx_scatter(buf: torch.Tensor, kx: torch.Tensor, k_valid: torch.Tensor,
     return out[:B]
 
 
-def linearize(poses, disps, intrinsics, targets, weights, p: DBAPlan):
+def linearize(poses, disps, intrinsics, targets, weights, p: DBAPlan,
+              stereo_rel=None):
     """Per-edge Gauss-Newton blocks.  Returns ((Hii, Hij, Hjj), (vi, vj),
-    (Eiz, Ejz), (Cii, bz))."""
+    (Eiz, Ejz), (Cii, bz)).  ``stereo_rel``: optional (7,) rig pose; the
+    stereo edges (ii == jj) then take it as their relative pose and
+    constrain depth only: they enter the depth blocks Cii and bz with
+    their full weight and every pose-coupled block (H, v, Eiz, Ejz) with
+    weight 0."""
     Ec = p.ii.shape[0]
     HW = disps.shape[-2] * disps.shape[-1]
     coords, valid, Ji, Jj, Jz = camera.projective_transform_cm(
-        poses, disps, intrinsics, p.ii, p.jj)
+        poses, disps, intrinsics, p.ii, p.jj, stereo_rel=stereo_rel)
     t_cm = targets.reshape(Ec, HW, 2).transpose(1, 2)
     w_cm = weights.reshape(Ec, HW, 2).transpose(1, 2)
     r = t_cm - coords                                    # (E, 2, HW)
@@ -165,6 +170,9 @@ def linearize(poses, disps, intrinsics, targets, weights, p: DBAPlan):
     wJz = w * Jz
     Cii = (wJz * Jz).sum(1)                              # (E, HW)
     bz = (wJz * r).sum(1)
+    if stereo_rel is not None:
+        w = w * (p.ii != p.jj).to(w.dtype)[:, None, None]
+        wJz = w * Jz
     J2 = torch.cat([Ji, Jj], dim=1).reshape(Ec, 12, 2 * HW)
     wJ2 = w.reshape(Ec, 1, 2 * HW) * J2
     H12 = torch.bmm(wJ2, J2.transpose(1, 2))             # (E, 12, 12)
@@ -305,11 +313,12 @@ def covariances(L, Ehat, Q, p: DBAPlan):
 
 def dba_iterations(poses, disps, intrinsics, targets, weights, eta,
                    disps_sens, p: DBAPlan, iters: int = 2, ep: float = 0.1,
-                   lm: float = 1e-4):
+                   lm: float = 1e-4, stereo_rel=None):
     """``iters`` relinearized Gauss-Newton steps on the full keyframe
     buffers (N, 7) / (N, H, W); only window slots change.  eta: (K, H, W)
     damping per depth slot; disps_sens: (K, H, W) sensed inverse depths
-    (0 where absent).  Returns (poses, disps)."""
+    (0 where absent); ``stereo_rel`` as in :func:`linearize`.  Returns
+    (poses, disps)."""
     K = p.kx.shape[0]
     Hh, Ww = disps.shape[-2:]
     mask = (p.p_valid * (1 - p.p_fixed))[:, None]
@@ -317,7 +326,8 @@ def dba_iterations(poses, disps, intrinsics, targets, weights, eta,
     px_safe = torch.where(p.p_valid > 0, p.px, N)
     px_read = p.px.clamp(max=N - 1)       # padded slots past the buffer
     for _ in range(iters):
-        blocks = linearize(poses, disps, intrinsics, targets, weights, p)
+        blocks = linearize(poses, disps, intrinsics, targets, weights, p,
+                           stereo_rel=stereo_rel)
         Hd, vd, Ehat, C, w = assemble(blocks, p, disps, eta, disps_sens)
         dx, dz, _, _ = solve_system(Hd, vd, Ehat, C, w, p, ep, lm,
                                     E_blocks=blocks[2])

@@ -70,6 +70,9 @@ class FrontendConfig:
     damping_scale: float = 0.2
     damping_offset: float = 1e-7
     sigma_idepth: float = 0.1        # initial inverse-depth variance prior
+    # False: the export tail skips the marginal covariances and exports
+    # 1e-4 I pose and unit inverse-depth variances, as the JAX tracker does
+    compute_covariances: bool = True
     # update-loop lookup: "pallas4g" (four pooled slabs, bf16 hat weights,
     # n_act-gated) | "pallas" (level-0 slab only, levels 1-3 derived in the
     # kernel) | "pallas_grouped" (four slabs, one exact-tap launch per
@@ -79,6 +82,16 @@ class FrontendConfig:
     # tensor) | "sparse" (interaction list of coupling pairs)
     schur_impl: str = "dense"
     global_ba: bool = False          # full-map BA at terminate()
+    # stereo: keyframes carry right-camera features too; the graph adds
+    # (i, i) STEREO edges whose correlation targets cam1 and whose relative
+    # pose is pinned to ``stereo_rel`` (cam1_T_cam0, [t, q_xyzw]); in the
+    # DBA they constrain depth and scale only
+    stereo: bool = False
+    stereo_rel: tuple = (-0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0)
+    # RGB-D: sensed inverse depths from the packets' depths seed each new
+    # keyframe and anchor the gauge in the DBA (monocular runs keep the
+    # free Sim(3) gauge)
+    rgbd: bool = False
 
 
 CORR_IMPLS = ("pallas4g", "pallas", "pallas_grouped", "onehot")
@@ -104,6 +117,8 @@ class KeyframeState:
     features: torch.Tensor        # (B, h, w, 128) bf16
     contexts: torch.Tensor        # (B, h, w, 128) bf16 (tanh)
     cst_contexts: torch.Tensor    # (B, h, w, 128) bf16 (relu)
+    features1: torch.Tensor       # (B, h, w, 128) bf16 right camera
+                                  # (stereo; (B, 1, 1, 1) otherwise)
 
     def permute(self, idx: torch.Tensor) -> None:
         for f in fields(self):
@@ -165,6 +180,10 @@ class RaftVisualFrontend:
                                            device=self.device)
         self._mean = torch.tensor(_MEAN, device=self.device)
         self._std = torch.tensor(_STD, device=self.device)
+        # the rig pose of the stereo edges, or None (monocular)
+        self._rig = (torch.tensor(cfg.stereo_rel, dtype=torch.float32,
+                                  device=self.device)
+                     if cfg.stereo else None)
         self.reset()
 
     # ------------------------------------------------------------------
@@ -218,7 +237,9 @@ class RaftVisualFrontend:
             damping=full((B, h, w), 1e-6),
             features=full((B, h, w, 128), 0.0, bf16),
             contexts=full((B, h, w, 128), 0.0, bf16),
-            cst_contexts=full((B, h, w, 128), 0.0, bf16))
+            cst_contexts=full((B, h, w, 128), 0.0, bf16),
+            features1=full((B, h, w, 128) if cfg.stereo else (B, 1, 1, 1),
+                           0.0, bf16))
         levels, hl, wl = [], h, w
         for _ in range(self._n_levels):
             levels.append(full((Ea, h, w, -(-hl // 8) * 8, wl), 0.0, bf16))
@@ -264,6 +285,18 @@ class RaftVisualFrontend:
         f = self.net.features(image_norm)[0]
         c, ci = self.net.context(image_norm)
         mag = self._motion_mag(f, self.last_kf_idx) if with_motion else None
+        if cfg.stereo:
+            # the right camera needs features only (no context)
+            right = batch.get("images_right")
+            assert right is not None, \
+                "stereo frontend needs batch['images_right']"
+            img1 = torch.as_tensor(np.ascontiguousarray(
+                np.asarray(right)[..., :3]), device=dev)
+            st.features1[slot] = self.net.features(
+                self._normalize(img1))[0].to(torch.bfloat16)
+        if batch.get("idepths_sensed") is not None:
+            st.idepths_sensed[slot] = torch.as_tensor(
+                np.asarray(batch["idepths_sensed"], np.float32), device=dev)
         st.timestamps[slot] = float(batch["t_cams"]) \
             if batch.get("t_cams") is not None else float(k)
         st.images[slot] = img
@@ -315,6 +348,9 @@ class RaftVisualFrontend:
         Ea, g, st, dev = self.cfg.e_active, self.graph, self.state, \
             self.device
         n = slot_map.shape[0]
+        if n > Ea:
+            raise ValueError(f"{n} edges > e_active {Ea} slots (stereo adds "
+                             f"an (i, i) edge a keyframe)")
         gather = np.zeros(Ea, np.int64)
         gather[:n] = np.maximum(slot_map, 0)
         gi = torch.as_tensor(gather, device=dev)
@@ -327,13 +363,19 @@ class RaftVisualFrontend:
             ii = torch.as_tensor(g.ii[new_pos], device=dev)
             jj = torch.as_tensor(g.jj[new_pos], device=dev)
             target, _, _ = camera.projective_transform(
-                st.cam_T_world, st.idepths, st.intrinsics, ii, jj)
+                st.cam_T_world, st.idepths, st.intrinsics, ii, jj,
+                stereo_rel=self._rig)
             hidden[pos] = st.contexts[ii].to(hidden.dtype)
             flow[pos] = target
             flow_w[pos] = 0.0
             f = st.features.permute(0, 3, 1, 2)
+            fj = f[jj]
+            if self.cfg.stereo:
+                # stereo (i, i) edges correlate cam0 with cam1 features
+                fj = torch.where((ii == jj)[:, None, None, None],
+                                 st.features1.permute(0, 3, 1, 2)[jj], fj)
             for lv, nl in zip(levels, corr.build_pyramid_bf16(
-                    f[ii], f[jj], self._n_levels, pad_rows_to=8)):
+                    f[ii], fj, self._n_levels, pad_rows_to=8)):
                 lv[pos] = nl
         self.edges = EdgeState(hidden=hidden, flow=flow, flow_weight=flow_w,
                                corr_levels=levels)
@@ -402,7 +444,9 @@ class RaftVisualFrontend:
         self._sync_edges_after_change(keep, 0, n_before)
 
     def add_neighborhood_factors(self, kf0, kf1, radius=3):
-        ii, jj = graphlib.neighborhood_edges(kf0, kf1, radius)
+        # stereo (i, i) edges enter through add_proximity_factors
+        ii, jj = graphlib.neighborhood_edges(kf0, kf1, radius,
+                                             stereo=self.cfg.stereo)
         self.add_factors(ii, jj)
 
     def distance(self, ii, jj) -> np.ndarray:
@@ -423,7 +467,7 @@ class RaftVisualFrontend:
         d = self.distance(ii_g.ravel(), jj_g.ravel())
         ii, jj = graphlib.proximity_edges(
             self.graph, d, self.kf_idx, kf0, kf1, rad, nms, thresh,
-            self.cfg.max_factors)
+            self.cfg.max_factors, stereo=self.cfg.stereo)
         if ii.shape[0]:
             self.add_factors(ii, jj, remove)
 
@@ -535,7 +579,8 @@ class RaftVisualFrontend:
         sens_k = st.idepths_sensed[plan.kx]
         for _ in range(n):
             coords1, _, _ = camera.projective_transform(
-                c["poses"], c["disps"], st.intrinsics, ii, jj)
+                c["poses"], c["disps"], st.intrinsics, ii, jj,
+                stereo_rel=self._rig)
             motion = torch.cat([coords1 - self._coords0,
                                 c["flow"] - coords1], -1).clamp(-64.0, 64.0)
             cvals = lookup(coords1.contiguous()).to(torch.bfloat16)
@@ -554,7 +599,7 @@ class RaftVisualFrontend:
             c["poses"], c["disps"] = dba.dba_iterations(
                 c["poses"], c["disps"], st.intrinsics, targets, weights,
                 eta_k, sens_k, plan, iters=cfg.gn_iters, ep=cfg.ep,
-                lm=cfg.lm)
+                lm=cfg.lm, stereo_rel=self._rig)
 
     def _commit_light(self, c: dict):
         st, ed = self.state, self.edges
@@ -564,27 +609,36 @@ class RaftVisualFrontend:
             c["hidden"], c["flow"], c["flow_w"]
 
     def _export(self, c: dict, plan: dba.DBAPlan, seed_next: int):
-        """Accepting update's tail: covariances, flow RMS, convex
-        upsampling of idepths and depth covariances, next-kf seeding."""
+        """Accepting update's tail: covariances (unless
+        ``cfg.compute_covariances`` is off), flow RMS, convex upsampling of
+        idepths and depth covariances, next-kf seeding."""
         cfg, st = self.cfg, self.state
         h, w = self.h, self.w
         K, B = plan.kx.shape[0], cfg.buffer
         poses, disps = c["poses"], c["disps"]
         targets = torch.cat([c["flow"], self.inactive.flow], 0)
         weights = torch.cat([c["flow_w"], self.inactive.flow_weight], 0)
-        eta_k = cfg.damping_scale * c["damping"][plan.kx] + cfg.damping_offset
-        sens_k = st.idepths_sensed[plan.kx]
-        blocks = dba.linearize(poses, disps, st.intrinsics, targets, weights,
-                               plan)
-        Hd, vd, Ehat, C, wv = dba.assemble(blocks, plan, disps, eta_k, sens_k)
-        eb = blocks[2] if cfg.schur_impl == "sparse" else None
-        _, _, L, Q = dba.solve_system(Hd, vd, Ehat, C, wv, plan, cfg.ep,
-                                      cfg.lm, E_blocks=eb)
-        pose_cov_p, z_cov = dba.covariances(L, Ehat, Q, plan)
-        z_cov = z_cov.reshape(K, h, w)
+        if cfg.compute_covariances:
+            eta_k = cfg.damping_scale * c["damping"][plan.kx] \
+                + cfg.damping_offset
+            sens_k = st.idepths_sensed[plan.kx]
+            blocks = dba.linearize(poses, disps, st.intrinsics, targets,
+                                   weights, plan, stereo_rel=self._rig)
+            Hd, vd, Ehat, C, wv = dba.assemble(blocks, plan, disps, eta_k,
+                                               sens_k)
+            eb = blocks[2] if cfg.schur_impl == "sparse" else None
+            _, _, L, Q = dba.solve_system(Hd, vd, Ehat, C, wv, plan, cfg.ep,
+                                          cfg.lm, E_blocks=eb)
+            pose_cov_p, z_cov = dba.covariances(L, Ehat, Q, plan)
+            z_cov = z_cov.reshape(K, h, w)
+        else:
+            pose_cov_p = 1e-4 * torch.eye(6, device=self.device).repeat(
+                plan.px.shape[0], 1, 1)
+            z_cov = torch.ones((K, h, w), device=self.device)
 
         coords1, valid, _ = camera.projective_transform(
-            poses, disps, st.intrinsics, plan.ii, plan.jj)
+            poses, disps, st.intrinsics, plan.ii, plan.jj,
+            stereo_rel=self._rig)
         r = (targets - coords1) * valid * plan.edge_valid[:, None, None, None]
         self.last_flow_rms = torch.sqrt(
             (r * r).sum() / torch.clamp(valid.sum() * 2.0, min=1.0))
@@ -622,13 +676,16 @@ class RaftVisualFrontend:
     def update(self, n_iters: int, use_inactive: bool = True,
                kf_dist_pair: Optional[Tuple[int, int]] = None,
                seed_next: int = -1, two_phase: bool = False,
-               n_iters2: int = 0) -> Optional[bool]:
+               n_iters2: int = 0,
+               seed_sensed_slot: int = -1) -> Optional[bool]:
         """One update round: pending maintenance, ``n_iters`` iterations,
         then the export tail.  ``two_phase``: after ``n_iters`` the
         keyframe distance of ``kf_dist_pair`` decides -- below
         cfg.keyframe_thresh the round stops there (returns False), else it
-        runs ``n_iters2`` more and exports (returns True).  None: empty
-        graph, nothing ran."""
+        runs ``n_iters2`` more and exports (returns True).
+        ``seed_sensed_slot``: the keyframe whose inverse depths start from
+        its sensed ones where it has them (-1: none).  None: empty graph,
+        nothing ran."""
         cfg, g, st, ed = self.cfg, self.graph, self.state, self.edges
         if g.n_edges == 0:
             return None
@@ -639,7 +696,13 @@ class RaftVisualFrontend:
         plan = self._plan(use_inactive, kf0, kf1)
         gates_inp = self.net.update_precompute(
             st.cst_contexts[plan.ii[:cfg.e_active]])
-        c = {"poses": st.cam_T_world, "disps": st.idepths,
+        disps = st.idepths
+        if seed_sensed_slot >= 0:
+            sensed = st.idepths_sensed[seed_sensed_slot]
+            disps = disps.clone()
+            disps[seed_sensed_slot] = torch.where(
+                sensed > 0, sensed, disps[seed_sensed_slot])
+        c = {"poses": st.cam_T_world, "disps": disps,
              "hidden": ed.hidden, "flow": ed.flow, "flow_w": ed.flow_weight,
              "damping": st.damping}
         self._iterate(n_iters, c, plan, gates_inp)
@@ -667,6 +730,15 @@ class RaftVisualFrontend:
         (4,), optional poses (4, 4), depths (H, W), t_cams,
         is_last_frame.  Returns a viz packet dict or None."""
         cfg = self.cfg
+        if cfg.rgbd and batch.get("depths") is not None \
+                and batch.get("idepths_sensed") is None:
+            # sensed inverse depths at feature resolution (a pixel of each
+            # dsf x dsf block; 0 where the sensor saw nothing)
+            d = np.asarray(batch["depths"], np.float32)[
+                cfg.dsf // 2::cfg.dsf, cfg.dsf // 2::cfg.dsf]
+            batch = dict(batch)
+            batch["idepths_sensed"] = np.where(
+                d > 1e-3, 1.0 / np.maximum(d, 1e-3), 0.0)
         if self.last_k is None:
             assert k == 0 and self.kf_idx == 0
             self._ingest(k, 0, batch, with_motion=False)
@@ -753,6 +825,7 @@ class RaftVisualFrontend:
         if cfg.keyframe_thresh >= 0:
             ran = self.update(n_iters=cfg.iters1, n_iters2=cfg.iters2,
                               two_phase=True, seed_next=seed_next,
+                              seed_sensed_slot=self.kf_idx,
                               kf_dist_pair=(self.kf_idx - 2,
                                             self.kf_idx - 1))
             if ran is False:
@@ -760,7 +833,8 @@ class RaftVisualFrontend:
             if ran:
                 self.graph.age += cfg.iters2
         else:
-            self.update(n_iters=cfg.iters1 + cfg.iters2, seed_next=seed_next)
+            self.update(n_iters=cfg.iters1 + cfg.iters2, seed_next=seed_next,
+                        seed_sensed_slot=self.kf_idx)
         return True
 
     # ------------------------------------------------------------------

@@ -2,7 +2,7 @@
 seed, and report how far the results spread.
 
     python3 scripts/repeat_torch_nerf_fit.py [--runs N] [--encoding hash|pe]
-                                             [--iters 2000]
+                                             [--iters 2000] [--repo DIR]
 
 Runs the 336x640 production pipeline once, sequentially, as
 ``chip_smoke.py`` builds it, keeps its keyframes (the training set of its
@@ -11,9 +11,11 @@ Runs the 336x640 production pipeline once, sequentially, as
 each time) for ``--iters`` iterations and prints, per fit, the PSNR and
 depth L1 at 8 training views, the steps per second of the fit alone, the
 peak device memory and a digest of the fitted parameters; then how many
-distinct fits the runs gave and the PSNR spread.  The hash grid's table
-gradient adds with atomics (``index_add_``), so its fits may differ from
-run to run.  Needs a CUDA device.
+distinct fits the runs gave and the PSNR spread.  Both fields' backward
+passes add in a fixed order (the hash grid's table gradient is a sorted,
+run-by-run scatter), so every run should give one fit.  ``--repo`` runs
+the port of another checkout (for example the parent commit's, to time
+the two in turns in one call).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,17 +35,20 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--encoding", default="hash", choices=["hash", "pe"])
     ap.add_argument("--iters", type=int, default=2000)
+    ap.add_argument("--repo", default=ROOT)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("repeat_torch_nerf_fit: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.repo))
     import chip_smoke as cs     # imports the package only when it runs
     from nerf_slam_tpu_torch.fusion import (NerfFusion, NerfFusionConfig,
                                             NGPConfig)
 
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    print(f"package: {os.path.dirname(os.path.abspath(cs.__file__))}",
+          flush=True)
     frontend, fusion = cs.build_main_path(dev)
     _, sink = cs.run_pipeline(cs.synthetic_frames(cs.W), frontend, fusion,
                               parallel=False)

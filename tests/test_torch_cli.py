@@ -1,7 +1,8 @@
 """The port's ``slam_demo`` CLI and ``FusionModule`` modes on the CPU at a
 tiny size: the CLI runs the synthetic room through tracking and each map
-backend and prints the JSON keys the JAX package's CLI prints; the flags
-whose features are not ported raise; the fusion stage's modes end as the
+backend, and with ``--stereo`` and ``--rgbd``, and prints the JSON keys
+the JAX package's CLI prints; the flags whose features are not ported
+raise; the fusion stage's modes end as the
 JAX stage's do, and its commands act on the map."""
 import json
 import os
@@ -88,12 +89,44 @@ def test_cli_nerf_fusion(capsys, monkeypatch, tmp_path):
     assert len(lines) >= 3
 
 
+@pytest.mark.parametrize("flag", ["--stereo", "--rgbd"])
+def test_cli_stereo_and_rgbd_run(capsys, monkeypatch, flag):
+    """``--stereo`` tracks with the synthetic room's right camera and the
+    rig pose its packets carry; ``--rgbd`` seeds sensed inverse depths
+    from the packets' depths.  Both run to the end and print the JAX
+    CLI's keys."""
+    built = []
+    build = slam_demo.build_frontend
+    monkeypatch.setattr(slam_demo, "build_frontend", lambda *a: built.append(
+        build(*a)) or built[-1])
+    res = _run(capsys, TINY + ["--fusion", "none", flag])
+    assert set(res) == BASE_KEYS
+    assert res["n_keyframes"] > 8 and np.isfinite(res["ate_rmse_m"])
+    fe = built[0]
+    n = fe.kf_idx + 1
+    assert torch.isfinite(fe.state.cam_T_world[:n]).all()
+    assert torch.isfinite(fe.state.idepths[:n]).all()
+    if flag == "--stereo":
+        assert fe.cfg.stereo and not fe.cfg.rgbd
+        np.testing.assert_array_equal(                  # the packets' f32
+            np.float32(fe.cfg.stereo_rel), np.float32([-0.1, 0, 0, 0, 0, 0,
+                                                        1]))
+        assert int((fe.graph.ii == fe.graph.jj).sum()) > 0
+        assert float(fe.state.features1.abs().sum()) > 0
+    else:
+        assert fe.cfg.rgbd and not fe.cfg.stereo
+        assert bool((fe.state.idepths_sensed[:n - 1] > 0).all())
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--stereo"], "§1.12"), (["--rgbd"], "§1.12"), (["--vio"], "§1.13"),
-    (["--gui"], "§1.16"), (["--viewer_port", "8000"], "§1.16"),
-    (["--device_split"], "§1.15"), (["--profile"], "§1.9"),
-    (["--edge_shards", "2"], "§1.15"), (["--weights", "droid.pth"], "§1.4"),
-    (["--dataset_name", "tum", "--dataset_dir", "x"], "§1.9")])
+    (["--vio"], "VIO"),
+    (["--gui"], "gui/"), (["--viewer_port", "8000"], "gui/"),
+    (["--device_split"], "parallel/"),
+    (["--profile"], "The other datasets and utils"),
+    (["--edge_shards", "2"], "parallel/"),
+    (["--weights", "droid.pth"], "Training"),
+    (["--dataset_name", "tum", "--dataset_dir", "x"],
+     "The other datasets and utils")])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         slam_demo.run(slam_demo.parse_args(["--device", "cpu"] + flags))

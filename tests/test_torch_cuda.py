@@ -486,8 +486,9 @@ def test_update_round_repeats_bit_for_bit(dev):
 def test_hash_encode_on_card_matches_cpu(dev, grid):
     """The hash encode and its backward on the card: indices equal to the
     CPU's, features within 1e-6, the table and position gradients within
-    1e-5 of their largest entry (index_add_ sums colliding corners with
-    atomics, in another order).  TF32 off: full f32 products."""
+    1e-5 of their largest entry (the bits are held by
+    test_hash_table_gradient_fixed_order_on_card).  TF32 off: full f32
+    products."""
     from nerf_slam_tpu_torch.fusion import hashgrid
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -512,6 +513,111 @@ def test_hash_encode_on_card_matches_cpu(dev, grid):
     for got, want in ((td, tc), (pd, pc)):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+def test_hash_table_gradient_fixed_order_on_card(dev):
+    """The fixed-order table gradient of the default hash grid (20,000
+    points in chunks of 8192): five calls on the card give the same bits,
+    and they equal the CPU's, since both add each table row's terms one
+    after another in the same order."""
+    from nerf_slam_tpu_torch.fusion import hashgrid
+    cfg = hashgrid.HashGridConfig()
+    rng = np.random.RandomState(4)
+    pos = torch.from_numpy((0.3 + 0.4 * rng.rand(20000, 3)).astype(
+        np.float32))
+    table = torch.from_numpy(rng.uniform(-1, 1, (
+        cfg.n_levels, cfg.table_size, cfg.n_features)).astype(np.float32))
+    g = torch.from_numpy(rng.randn(20000, cfg.out_dim).astype(np.float32))
+
+    def grad(d):
+        t = table.to(d).detach().requires_grad_(True)
+        hashgrid.encode_chunked(t, pos.to(d), cfg, 8192).backward(g.to(d))
+        return t.grad
+
+    first = grad(dev)
+    for _ in range(4):
+        assert torch.equal(grad(dev), first)
+    assert torch.equal(first.cpu(), grad("cpu"))
+    # the scatter alone, on many colliding terms
+    idx = torch.from_numpy(rng.randint(0, 300, size=200000).astype(np.int32))
+    vals = torch.from_numpy((rng.randn(200000, 2) * 10.0 ** rng.uniform(
+        -6, 6, (200000, 1))).astype(np.float32))
+    on_card = hashgrid._scatter_rows(idx.to(dev), vals.to(dev), 301)
+    assert torch.equal(on_card.cpu(), hashgrid._scatter_rows(idx, vals, 301))
+
+
+def test_segment_sum_nonfinite_on_card_matches_cpu(dev):
+    """Non-finite blocks at the DBA assembly's shape (96 edges, 6 x 3360
+    entries, 40 segments): NaN and +-inf planted in dropped rows (id -1
+    and past the end) and in kept ones.  The card's sum has its NaN and
+    inf exactly where the CPU's has them, with their signs, and the
+    finite entries agree within 1e-6 of the segment's sum of |x| (the two
+    GEMMs add in different orders); a second call repeats the bits."""
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 40, size=96)
+    ids[::7] = -1
+    ids[3] = 45
+    x = (rng.randn(96, 6, 3360) * 2.0).astype(np.float32)
+    flat = x.reshape(96, -1)
+    for r, v in ((0, np.nan), (3, np.inf), (7, -np.inf), (10, np.nan),
+                 (11, np.inf), (12, -np.inf), (20, np.inf), (21, -np.inf)):
+        flat[r, rng.randint(0, flat.shape[1], size=50)] = v
+    ids[20] = ids[21] = 5                 # +inf and -inf meet: NaN
+    xt, it = torch.from_numpy(x), torch.from_numpy(ids)
+    want = dba.seg_sum(xt, it, 40)
+    got = dba.seg_sum(xt.to(dev), it.to(dev), 40)
+    again = dba.seg_sum(xt.to(dev), it.to(dev), 40)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    fin = torch.isfinite(want)
+    scale = torch.zeros_like(want)
+    for e, sg in enumerate(ids):
+        if 0 <= sg < 40:
+            scale[sg] += torch.where(torch.isfinite(xt[e]), xt[e], 0).abs()
+    assert ((got - want).abs()[fin] <= 1e-6 * scale[fin] + 1e-30).all()
+
+
+def test_stereo_frontend_repeats_bit_for_bit(dev):
+    """The stereo tracker (trained weights in bf16, 96x128 stereo frames
+    of the synthetic room, filters off) twice on fresh state: the same
+    keyframes, poses, inverse depths and right-camera features to the
+    bit, with (i, i) stereo edges in the graph and finite outputs."""
+    from nerf_slam_tpu_torch.datasets import (SyntheticConfig,
+                                              SyntheticDataset)
+    from nerf_slam_tpu_torch.models import DroidNet, load_flax_weights
+    from nerf_slam_tpu_torch.tracking import (FrontendConfig,
+                                              RaftVisualFrontend)
+    from nerf_slam_tpu_torch.utils.checkpoint import load_arrays
+
+    flat, meta = load_arrays(WEIGHTS)
+    net = load_flax_weights(DroidNet(dtype=torch.bfloat16), flat)
+    H, W = 96, 128
+    cfg = FrontendConfig(buffer=12, e_active=32, e_inactive=16, p_window=12,
+                         k_depth=14, keyframe_warmup=4, max_factors=24,
+                         motion_filter_thresh=-1.0, keyframe_thresh=-1.0,
+                         stereo=True,
+                         damping_scale=float(meta["damping_scale"]),
+                         damping_offset=float(meta["damping_offset"]))
+    ds = SyntheticDataset(SyntheticConfig(n_frames=30, height=H, width=W,
+                                          stereo=True, baseline=0.1))
+    frames = [ds[k] for k in range(8)]
+    runs = []
+    for _ in range(2):
+        fe = RaftVisualFrontend(net, cfg, (H, W), device=dev)
+        for k, f in enumerate(frames):
+            fe(k, f)
+        st = fe.state
+        assert int((fe.graph.ii == fe.graph.jj).sum()) > 0
+        runs.append([t.clone() for t in (
+            st.timestamps, st.cam_T_world, st.idepths, st.features1,
+            fe.edges.flow)])
+    assert all(torch.isfinite(t.float()).all() for t in runs[0])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_tsdf_integrate_on_card_matches_cpu(dev):

@@ -134,3 +134,101 @@ def test_segment_sums_repeat_to_the_bit():
     for _ in range(5):
         assert torch.equal(dba.seg_sum(x, ids, 6), first)
         assert torch.equal(update.segment_mean(xb, ids, 6), first_mean)
+
+
+# non-finite blocks: (ids, n_seg, [(row, column, value)]) -- the value is
+# planted into row ``row`` at flat column ``column``
+NONFINITE = {
+    "dropped_inf": ([0, 1, 2, -1], 3, [(3, 0, np.inf)]),
+    "dropped_nan_past_the_end": ([0, 5, 1, 1], 2, [(1, 2, np.nan)]),
+    "kept_nan": ([0, 1, 1, 2], 3, [(1, 0, np.nan)]),
+    "kept_pos_inf": ([0, 1, 2, 2], 3, [(2, 3, np.inf)]),
+    "kept_neg_inf": ([2, 2, 0, -1], 3, [(0, 1, -np.inf)]),
+    "pos_and_neg_inf_one_segment": ([1, 0, 1, 1], 2,
+                                    [(0, 4, np.inf), (3, 4, -np.inf)]),
+    "two_pos_inf_one_segment": ([1, 1, 0], 2, [(0, 2, np.inf),
+                                               (1, 2, np.inf)]),
+    "mixed": ([0, -1, 1, 0, 2, 1], 3, [(0, 0, np.nan), (1, 1, np.inf),
+                                       (2, 1, -np.inf), (3, 5, np.inf),
+                                       (5, 5, np.nan)]),
+}
+
+
+def _nonfinite_inputs(case, seed):
+    ids, n_seg, plant = NONFINITE[case]
+    ids = np.asarray(ids, np.int64)
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(ids.shape[0], 2, 3) * 2.0).astype(np.float32)
+    flat = x.reshape(ids.shape[0], -1)
+    for r, c, v in plant:
+        flat[r, c] = v
+    return x, ids, n_seg
+
+
+@pytest.mark.parametrize("case", sorted(NONFINITE))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_sum_nonfinite_matches_jax(case, dtype):
+    """NaN and inf against ``jax.ops.segment_sum`` with the ids as they
+    are (JAX drops ids outside [0, n_seg) itself): every NaN and every inf
+    of the port's sum sits where JAX's does, with JAX's sign; the finite
+    entries agree to the tolerances of the finite tests above (1e-6 of
+    the segment's sum of |x| in f32, E bf16 roundings of it in bf16)."""
+    x, ids, n_seg = _nonfinite_inputs(case, 5)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    x_in = xt.float().numpy()
+    got = segment.segment_sum(xt, torch.from_numpy(ids), n_seg)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    want = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(x_in, getattr(jnp, dtype)), jnp.asarray(ids),
+        num_segments=n_seg).astype(jnp.float32))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    scale = _abs_sum(np.where(np.isfinite(x_in), x_in, 0.0),
+                     np.where(ids < n_seg, ids, -1), n_seg)
+    tol = (1e-6 * np.maximum(scale, 1.0) if dtype == "float32"
+           else len(ids) * BF16_U * scale + 1e-30)
+    assert (np.abs(got[fin] - want[fin]) <= tol[fin]).all()
+    # something non-finite survived where it should, and nothing leaked
+    assert np.isfinite(want).sum() > 0
+
+
+@pytest.mark.parametrize("case", sorted(NONFINITE))
+def test_segment_mean_nonfinite_matches_jax(case):
+    """The mean keeps each non-finite value in its own segment and column
+    (NaN and inf divided by the count), like JAX's sum over the count."""
+    x, ids, n_seg = _nonfinite_inputs(case, 6)
+    got = update.segment_mean(torch.from_numpy(x), torch.from_numpy(ids),
+                              n_seg).numpy()
+    summed = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(x), jnp.asarray(ids), num_segments=n_seg))
+    count = np.asarray(jax.ops.segment_sum(
+        jnp.ones(len(ids)), jnp.asarray(ids), num_segments=n_seg))
+    want = summed / np.maximum(count, 1.0)[:, None, None]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got) * np.sign(got),
+                                  np.isinf(want) * np.sign(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_sum_finite_bits_unchanged(dtype):
+    """On finite blocks the sums are the one-hot product's bits, as before
+    the non-finite handling: the tracker's reproducibility and its
+    trajectory rest on them."""
+    rng = np.random.RandomState(7)
+    ids = torch.from_numpy(rng.randint(-1, 6, size=48))
+    x = torch.from_numpy(rng.randn(48, 6, 36).astype(np.float32)) \
+        .to(getattr(torch, dtype))
+    hit = ids[None, :] == torch.arange(6)[:, None]
+    plain = (hit.float() @ x.reshape(48, -1).float()).to(x.dtype) \
+        .reshape(6, 6, 36)
+    assert torch.equal(segment.segment_sum(x, ids, 6), plain)
+    count = torch.clamp(hit.sum(1, keepdim=True), min=1)
+    plain_mean = ((hit.float() @ x.reshape(48, -1).float()) / count) \
+        .to(x.dtype).reshape(6, 6, 36)
+    assert torch.equal(segment.segment_mean(x, ids, 6), plain_mean)

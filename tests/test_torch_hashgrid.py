@@ -124,3 +124,61 @@ def test_init_table_range():
     t = thash.init_table(ct, torch.Generator().manual_seed(0))
     assert t.shape == (4, 1024, 2) and t.dtype == torch.float32
     assert float(t.abs().max()) <= 1e-4 and float(t.std()) > 4e-5
+
+
+def _table_grads(cj, ct, p, table, g):
+    _, vjp = jax.vjp(lambda t: jhash.encode(t, jnp.asarray(p), cj),
+                     jnp.asarray(table))
+    (dt_j,) = vjp(jnp.asarray(g))
+    tt = torch.from_numpy(table).requires_grad_(True)
+    thash.encode(tt, torch.from_numpy(p), ct).backward(torch.from_numpy(g))
+    return tt.grad, np.asarray(dt_j)
+
+
+def test_table_gradient_fixed_order_matches_jax_vjp():
+    """Many points in a few cells, so that every table row sums dozens of
+    colliding corner terms: the fixed-order table gradient against
+    jax.vjp of the JAX encode.  Both add each row's terms in the same
+    order (corner by corner, then level, then point); JAX's CPU scatter
+    may group them otherwise, so the bound is 1e-6 of the largest entry
+    (measured: equal)."""
+    cj, ct = _cfgs(**SMALL)
+    p = (0.45 + 0.1 * np.random.RandomState(8).rand(2000, 3)) \
+        .astype(np.float32)
+    table = _table(ct, 9)
+    g = np.random.RandomState(10).randn(2000, ct.out_dim).astype(np.float32)
+    got, want = _table_grads(cj, ct, p, table, g)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_scatter_rows_adds_in_sequence_and_repeats():
+    """The table-gradient scatter equals adding the terms one by one in
+    their order (values spread over 16 decades, so another order would
+    round differently), and a second call gives the same bits."""
+    rng = np.random.RandomState(11)
+    idx = torch.from_numpy(rng.randint(0, 40, size=3000).astype(np.int32))
+    vals = torch.from_numpy((rng.randn(3000, 2) * 10.0 ** rng.uniform(
+        -8, 8, (3000, 1))).astype(np.float32))
+    ref = torch.zeros(41, 2)
+    for k in range(3000):
+        ref[idx[k]] = ref[idx[k]] + vals[k]
+    got = thash._scatter_rows(idx, vals, 41)
+    assert torch.equal(got, ref)
+    assert torch.equal(thash._scatter_rows(idx, vals, 41), got)
+
+
+def test_table_gradient_repeats_to_the_bit():
+    """The encode's table gradient, computed twice from the same inputs,
+    gives the same bits (the card test holds the same on the GPU)."""
+    _, ct = _cfgs(**SMALL)
+    p = torch.from_numpy(_positions(500, 12))
+    table = torch.from_numpy(_table(ct, 13))
+    g = torch.from_numpy(np.random.RandomState(14).randn(
+        500, ct.out_dim).astype(np.float32))
+    grads = []
+    for _ in range(2):
+        t = table.clone().requires_grad_(True)
+        thash.encode(t, p, ct).backward(g)
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
