@@ -55,10 +55,37 @@ fit with pose refinement (``optimize_extrinsics``, from iteration 500,
 (``render_accel=False``) and free-view renders at the dynamic
 resolution.
 
+Then the real file formats, each through the ``slam_demo`` CLI with the
+same weights and filters, sequentially, the counters zeroed before each
+run: (j) the in-repo instant-ngp scene ``convergence_results/
+object_scene_nerf`` (30 frames, 336x640 PNGs) with ``--fusion nerf
+--eval``: at least 20 keyframes, ATE-RMSE at most 0.50 m (the JAX
+package's record 0.4009 m plus 25%), the PSNR after the run's mapping
+iterations, and the tracker once more on fresh state held to the bit;
+(k) the synthetic room rendered at TUM's 480x640 through the freiburg3
+camera and written in the TUM RGB-D layout by the port's PNG encoder,
+read at 384x512, with ``--rgbd --fusion sigma``; (l) the room with a
+right camera 0.1 m along +x at EuRoC's 480x752 in the ``mav0/`` layout
+(sensor.yaml files, ground truth, a constant IMU), rectified to 336x640,
+with ``--stereo``: the baseline recovered within 1e-4 and (i, i) edges
+in the graph.  Each must launch kernels #1 and #2 and keep every pose and
+depth finite.  (m) The production tracker saved after keyframe 12 and
+resumed in a fresh tracker equals the sequential run to the bit, and a PE
+field saved after 500 iterations and resumed to 1000 equals an
+uninterrupted fit; (n) path (d)'s mesh written as OBJ, read back by
+``load_mesh`` and rendered by ``MeshRenderer`` on the card at two of
+(d)'s views, within 1 cm (mean) of a 768-step TSDF ray cast and 0.5 cm
+of the ground truth; (o) (k)'s first 15 frames once more with
+``--profile --fusion none``, whose trace must name kernel #1's device
+function; and Replica (JPEG color frames) where OpenCV or Pillow imports,
+else one line saying why it was not run.
+
 Output, in order: the card's name and power limit, the kernel build time,
-one line per kernel check, the pipeline and path lines, the ``kernels``
-JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero without the ``ok`` line.  Needs a CUDA device; imports no JAX.
+one line per kernel check, the pipeline and path lines (a)-(o) and
+Replica, the launches of #1 and #2 on (j), (k), (l) and (o), the
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero without the ``ok`` line.  Needs a CUDA device;
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -68,6 +95,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,6 +136,28 @@ STEREO_BASELINE = 0.1
 # (i): the pose refinement's schedule
 REFINE = dict(optimize_extrinsics=True, extrinsics_start=500,
               extrinsics_period=100, extrinsics_pose_iters=25)
+# (j): the in-repo NeRF-format scene (instant-ngp transforms.json, 336x640)
+# and the JAX package's record on it (convergence_results/summary.json,
+# row object_scene: 24 keyframes, ATE-RMSE 0.4009 m) plus 25%
+NERF_SCENE = os.path.join(ROOT, "convergence_results", "object_scene_nerf")
+NERF_MIN_KF, NERF_ATE_LIMIT_M = 20, 0.50
+# (k): TUM's 480x640 frames, the freiburg3 camera the loader assigns, and
+# the loader's 384x512 output
+TUM_HW, TUM_OUT_HW = (480, 640), (384, 512)
+FR3 = (535.4, 539.2, 320.1, 247.6)
+# (l): EuRoC's 752x480 cameras, rectified to the production 336x640
+EUROC_HW = (480, 752)
+# (n): the mesh render against the TSDF ray cast (at MESH_RAY_STEPS steps)
+# and against the ground truth, mean |depth diff| limits
+MESH_VIEWS, MESH_HW, MESH_LIMIT_CM, MESH_GT_LIMIT_CM = 2, (240, 320), 1.0, 0.5
+MESH_RAY_STEPS, MESH_VIEW_LIMIT_S = 768, 10.0
+# (m): the keyframe after which the production tracker is saved
+RESUME_KF = 12
+# (o): (k)'s frames under the profiler (all 30: a 360 MiB trace and about
+# a minute of the run; the first call past 450 s cut them to 15)
+PROFILE_FRAMES = 15
+WEIGHTS = os.path.join(ROOT, "weights_synthetic.npz")
+DEVICE = "cuda"             # the CLI's and the renderer's device
 # the library yardstick of the one-level kernels, F.grid_sample, takes its
 # grid in the volume's type: in bf16 the sampling positions themselves are
 # rounded (to 2^-8 of the half width, up to 0.08 px at width 80, on volumes
@@ -629,7 +679,7 @@ def pipeline_phase(dev):
         raise RuntimeError("the tracker is not reproducible: a second "
                            "sequential run on fresh state changed the "
                            "keyframes, the poses or the depths")
-    return launches, train_set, pe
+    return launches, train_set, pe, frames, first
 
 
 def synthetic_frames(width: int):
@@ -737,9 +787,9 @@ def scene_surface_distance(pts, ds):
     return d
 
 
-def tsdf_phase(dev):
+def tsdf_phase(dev, tmp: str):
     """(d) GT-depth TSDF fusion at the default preset, scored as
-    QUALITY.md's default row was."""
+    QUALITY.md's default row was; then (n) on its mesh."""
     from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
     from nerf_slam_tpu_torch.fusion import TsdfFusion, TsdfFusionConfig
 
@@ -786,6 +836,71 @@ def tsdf_phase(dev):
         if not abs(got[key] - ref) <= band:
             raise RuntimeError(f"TSDF fidelity: {key} {got[key]:.4f} outside "
                                f"QUALITY.md's {ref} +- {band}")
+    mesh_phase(fusion, verts, faces, views, tmp)
+
+
+def mesh_phase(fusion, verts, faces, views, tmp: str) -> None:
+    """(n) Path (d)'s mesh written by the mesher as OBJ, read back by
+    ``load_mesh`` and rendered on the card by ``MeshRenderer`` at two of
+    (d)'s ground-truth views, against the TSDF ray cast at the same views
+    (mean |depth difference| on pixels both hit under MESH_LIMIT_CM) and
+    against the views' ground-truth depths (under MESH_GT_LIMIT_CM).
+
+    The ray cast marches MESH_RAY_STEPS steps (a fifth of a voxel) for
+    this comparison; (d)'s evaluation's 192 steps leave it about 1 cm
+    from the ground truth (it skips past silhouettes), more than the mesh
+    render's own error, and that comparison is printed beside."""
+    from nerf_slam_tpu_torch.fusion.mesher import write_obj
+    from nerf_slam_tpu_torch.utils.evaluation import MeshRenderer, load_mesh
+    path = os.path.join(tmp, "tsdf_mesh.obj")
+    t0 = time.perf_counter()
+    write_obj(path, verts, faces)
+    mv, mf = load_mesh(path)
+    io_s = time.perf_counter() - t0
+    os.remove(path)
+    h, w = MESH_HW
+    rows, times = [], []
+    for p in [views[k] for k in (3, 14)][:MESH_VIEWS]:
+        intr = np.asarray(p["intrinsics"], np.float64) * (w / TSDF_W)
+        renderer = MeshRenderer((mv, mf), intr, (w, h), device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_depth = renderer.render_mesh(p["poses"])
+        times.append(time.perf_counter() - t0)
+        gt = np.asarray(p["depths"])
+        row = {}
+        for steps in (MESH_RAY_STEPS, 192):
+            _, cast = fusion._raycast(
+                fusion.volume, fusion._tensor(p["poses"]), (h, w),
+                fusion._tensor(intr), n_steps=steps)
+            cast = cast.cpu().numpy()
+            both = (mesh_depth > 0) & (cast > 0)
+            row[steps] = float(np.abs(mesh_depth - cast)[both].mean()) * 100
+            row["cover"] = float(both.mean())
+        hit = (mesh_depth > 0) & (gt > 0)
+        row["gt"] = float(np.abs(mesh_depth - gt)[hit].mean()) * 100
+        rows.append(row)
+        if times[-1] > MESH_VIEW_LIMIT_S:
+            log(f"(n) one view took {times[-1]:.1f} s: the views are cut "
+                f"to this one")
+            break
+    log(f"(n) mesh of (d), {mf.shape[0]} triangles, written as OBJ and read "
+        f"back by load_mesh in {io_s:.2f} s (host); MeshRenderer on the card "
+        f"at {h}x{w}: {', '.join(f'{t:.3f}' for t in times)} s a view "
+        f"(host clock, synced); mean |mesh depth - TSDF ray cast| at "
+        f"{MESH_RAY_STEPS} steps "
+        f"{', '.join(f'{r[MESH_RAY_STEPS]:.4f}' for r in rows)} cm (192 "
+        f"steps: {', '.join(f'{r[192]:.4f}' for r in rows)} cm) on "
+        f"{', '.join(f'{100 * r['cover']:.1f}%' for r in rows)} of the "
+        f"pixels; mean |mesh depth - ground truth| "
+        f"{', '.join(f'{r['gt']:.4f}' for r in rows)} cm")
+    if not (mv.shape == verts.shape and mf.shape == faces.shape):
+        raise RuntimeError(f"(n) load_mesh read {mv.shape}/{mf.shape}, wrote "
+                           f"{verts.shape}/{faces.shape}")
+    for r in rows:
+        if not (r[MESH_RAY_STEPS] < MESH_LIMIT_CM and r["cover"] > 0.5
+                and r["gt"] < MESH_GT_LIMIT_CM):
+            raise RuntimeError(f"(n) mesh render out of bounds: {r}")
 
 
 def cli_phase(dev):
@@ -900,7 +1015,8 @@ def hash_phase(dev, train_set, pe, second_iters: int):
 def sensor_phase(dev):
     """(g) the stereo tracker and (h) the RGB-D tracker on the production
     frames (rendered with the right camera), weights and filters,
-    sequentially, each twice on fresh state.  Returns their launches."""
+    sequentially, each twice on fresh state.  Returns each one's
+    launches, Sim(3)-aligned ATE and scale."""
     from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
     from nerf_slam_tpu_torch.utils.evaluation import (ate_rmse,
                                                       trajectory_from_packet,
@@ -938,13 +1054,14 @@ def sensor_phase(dev):
             if est.shape[0] < 3 or not np.isfinite(est).all():
                 raise RuntimeError(f"({tag}) bad trajectory")
             scale = umeyama_alignment(est, gt)[2]
+            counted[tag] = {"launches": launches, "ate": ate_rmse(est, gt),
+                            "scale": scale}
             log(f"({tag}) {extra} {H}x{W} run {run + 1}: {n} keyframes of "
                 f"{N_FRAMES} frames in {wall:.2f} s, {n_stereo} (i, i) edges "
                 f"in the final graph, ATE-RMSE Sim(3)-aligned "
                 f"{ate_rmse(est, gt):.4f} m (scale {scale:.4f}), "
                 f"SE(3)-aligned {ate_rmse(est, gt, align_scale=False):.4f} "
                 f"m, launches {launches}")
-            counted[tag] = launches
             del frontend, sink
             torch.cuda.empty_cache()
         same = same_bits(*results)
@@ -1022,6 +1139,422 @@ def mapper_phase(dev, train_set, pe):
         raise RuntimeError(f"(i) the dynamic render is {depth2.shape}")
 
 
+# ----------------------------------------------------------------------
+# (j)-(o): the real-format datasets through the CLI, resume, meshes,
+# the profiler
+# ----------------------------------------------------------------------
+
+KERNELS_12 = ("corr_lookup_grouped4", "corr_lookup_pyramid")
+
+
+def cli_run(flags):
+    """``slam_demo.run`` with ``flags`` on the card, sequentially, the
+    launch counters zeroed just before it.  Returns (results, launches,
+    the tracker it built)."""
+    from nerf_slam_tpu_torch.cli import slam_demo
+    from nerf_slam_tpu_torch.ops import corr_lookup
+    built = []
+    build = slam_demo.build_frontend
+    slam_demo.build_frontend = lambda *a: built.append(build(*a)) or built[-1]
+    try:
+        args = slam_demo.parse_args(
+            ["--weights", WEIGHTS, "--buffer", str(BUFFER), "--out",
+             os.devnull, "--device", DEVICE] + flags)
+        torch.cuda.synchronize()
+        corr_lookup.reset_launches()
+        res = slam_demo.run(args)
+        torch.cuda.synchronize()
+        launches = dict(corr_lookup.launches)
+    finally:
+        slam_demo.build_frontend = build
+    return res, launches, built[0]
+
+
+def check_tracking(tag: str, fe, launches) -> dict:
+    """Kernels #1 and #2 launched, every keyframe pose and depth finite;
+    returns the Sim(3)-aligned ATE, its scale and the SE(3)-aligned ATE
+    from the tracker's keyframes."""
+    from nerf_slam_tpu_torch.utils.evaluation import (
+        _pose_to_c2w_translation, ate_rmse, umeyama_alignment)
+    missing = [k for k in KERNELS_12 if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"({tag}) kernels not launched: {missing}")
+    n, st = fe.kf_idx + 1, fe.state
+    if not (torch.isfinite(st.cam_T_world[:n]).all()
+            and torch.isfinite(st.idepths[:n]).all()):
+        raise RuntimeError(f"({tag}) non-finite poses or depths")
+    est = _pose_to_c2w_translation(st.cam_T_world[:n].cpu().numpy())
+    gt = st.gt_poses[:n, :3, 3].cpu().numpy().astype(np.float64)
+    return {"ate": ate_rmse(est, gt), "scale": umeyama_alignment(est, gt)[2],
+            "ate_se3": ate_rmse(est, gt, align_scale=False), "n_kf": n}
+
+
+def nerf_format_phase() -> dict:
+    """(j) The CLI on the in-repo NeRF-format scene at 336x640 with the
+    NeRF map and --eval; then the tracker once more on fresh state (no
+    map), held to the first run's bits."""
+    flags = ["--dataset_name", "nerf", "--dataset_dir", NERF_SCENE,
+             "--height", str(H), "--width", str(W)]
+    res, launches, fe = cli_run(flags + ["--fusion", "nerf", "--eval"])
+    q = check_tracking("j", fe, launches)
+    first = tracker_result(fe)
+    psnr = res.get("fusion_psnr", math.nan)
+    depth_l1 = res.get("fusion_depth_l1_aligned_cm", math.nan)
+    log(f"(j) CLI --dataset_name nerf {os.path.basename(NERF_SCENE)} "
+        f"{H}x{W} --fusion nerf --eval: {q['n_kf']} keyframes, "
+        f"{res['kf_per_s']:.4f} keyframes/s ({res['wall_s']:.2f} s; data "
+        f"stage {res['data_mean_ms']:.1f} ms a frame), "
+        f"ATE-RMSE {q['ate']:.4f} m (scale {q['scale']:.4f}; JAX record "
+        f"24 keyframes, 0.4009 m), PSNR {psnr:.4f} dB after "
+        f"{res.get('fusion_iteration')} mapping iterations (aligned depth L1"
+        f" {depth_l1:.2f} cm), launches {launches}")
+    del fe
+    torch.cuda.empty_cache()
+    res2, launches2, fe2 = cli_run(flags + ["--fusion", "none"])
+    same = same_bits(first, tracker_result(fe2))
+    log(f"(j) the tracker again on fresh state (--fusion none, "
+        f"{res2['wall_s']:.2f} s): keyframes, poses and depths bit-identical "
+        f"to the first run: {same}")
+    if q["n_kf"] < NERF_MIN_KF:
+        raise RuntimeError(f"(j) {q['n_kf']} keyframes < {NERF_MIN_KF}")
+    if not q["ate"] <= NERF_ATE_LIMIT_M:
+        raise RuntimeError(f"(j) ATE-RMSE {q['ate']:.4f} m > "
+                           f"{NERF_ATE_LIMIT_M}")
+    if not math.isfinite(psnr):
+        raise RuntimeError(f"(j) no finite PSNR: {res}")
+    if not same:
+        raise RuntimeError("(j) the tracker is not reproducible on the NeRF "
+                           "scene")
+    return {"launches": launches}
+
+
+def write_tum(root: str) -> str:
+    """The synthetic room rendered at TUM's 480x640 through the freiburg3
+    camera, written in the TUM RGB-D layout by the port's PNG encoder:
+    rgb/, depth/ (uint16, depth x 5000), rgb.txt, depth.txt,
+    groundtruth.txt (tx ty tz qx qy qz qw)."""
+    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
+    from nerf_slam_tpu_torch.datasets.image_io import write_png
+    from nerf_slam_tpu_torch.geometry import se3
+    d = os.path.join(root, "rgbd_dataset_freiburg3_synthetic")
+    os.makedirs(os.path.join(d, "rgb"))
+    os.makedirs(os.path.join(d, "depth"))
+    ds = SyntheticDataset(SyntheticConfig(n_frames=N_FRAMES, height=TUM_HW[0],
+                                          width=TUM_HW[1]))
+    ds.K = np.array(FR3)
+    rgb, dep, gt = (["# color images"], ["# depth maps"],
+                    ["# timestamp tx ty tz qx qy qz qw"])
+    for k in range(N_FRAMES):
+        pkt = ds[k]
+        t = 1305031102.0 + k / 30.0
+        name = f"{t:.6f}.png"
+        write_png(os.path.join(d, "rgb", name), pkt["images"])
+        write_png(os.path.join(d, "depth", name), np.clip(
+            np.round(pkt["depths"] * 5000), 0, 65535).astype(np.uint16))
+        rgb.append(f"{t:.6f} rgb/{name}")
+        dep.append(f"{t + 0.003:.6f} depth/{name}")
+        pose = se3.from_matrix(torch.as_tensor(pkt["poses"],
+                                               dtype=torch.float64))
+        gt.append(f"{t:.6f} " + " ".join(f"{v:.9f}" for v in pose.tolist()))
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", dep),
+                        ("groundtruth.txt", gt)):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return d
+
+
+def _sensor_yaml(T_BS, K, wh) -> str:
+    rows = ",\n         ".join(", ".join(f"{v:.12f}" for v in r)
+                               for r in T_BS)
+    return ("%YAML:1.0\n# General sensor definitions.\nsensor_type: camera\n"
+            "comment: synthetic rig\n\n# Sensor extrinsics wrt. the "
+            "body-frame.\nT_BS:\n  cols: 4\n  rows: 4\n"
+            f"  data: [{rows}]\n\n# Camera specific definitions.\n"
+            f"rate_hz: 30\nresolution: [{wh[0]}, {wh[1]}]\n"
+            "camera_model: pinhole\n"
+            f"intrinsics: [{K[0]}, {K[1]}, {K[2]}, {K[3]}] #fu, fv, cu, cv\n"
+            "distortion_model: radial-tangential\n"
+            "distortion_coefficients: [0.0, 0.0, 0.0, 0.0]\n")
+
+
+_IMU_YAML = ("%YAML:1.0\n#Default imu sensor yaml file\nsensor_type: imu\n"
+             "comment: constant synthetic IMU\nT_BS:\n  cols: 4\n  rows: 4\n"
+             "  data: [1.0, 0.0, 0.0, 0.0,\n         0.0, 1.0, 0.0, 0.0,\n"
+             "         0.0, 0.0, 1.0, 0.0,\n         0.0, 0.0, 0.0, 1.0]\n"
+             "rate_hz: 200\n"
+             "gyroscope_noise_density: 1.6968e-04\n"
+             "gyroscope_random_walk: 1.9393e-05\n"
+             "accelerometer_noise_density: 2.0000e-3\n"
+             "accelerometer_random_walk: 3.0000e-3\n")
+
+
+def write_euroc(root: str) -> str:
+    """The synthetic room with a right camera 0.1 m along +x, rendered at
+    EuRoC's 480x752 and written in the ``mav0/`` layout: 8-bit gray PNGs,
+    data.csv lists, sensor.yaml files in EuRoC's layout (zero
+    distortion), ground truth with wxyz quaternions, a constant 200 Hz
+    imu0."""
+    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
+    from nerf_slam_tpu_torch.datasets.image_io import write_png
+    from nerf_slam_tpu_torch.geometry import se3
+    mav = os.path.join(root, "V9_synthetic", "mav0")
+    ds = SyntheticDataset(SyntheticConfig(
+        n_frames=N_FRAMES, height=EUROC_HW[0], width=EUROC_HW[1],
+        stereo=True, baseline=STEREO_BASELINE))
+    T_B_c1 = np.eye(4)
+    T_B_c1[0, 3] = STEREO_BASELINE
+    csv = {"cam0": ["#timestamp [ns],filename"],
+           "cam1": ["#timestamp [ns],filename"]}
+    gt = ["#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z,v_x,v_y,v_z,b_w_x,b_w_y,"
+          "b_w_z,b_a_x,b_a_y,b_a_z"]
+    for cam, tbs in (("cam0", np.eye(4)), ("cam1", T_B_c1)):
+        os.makedirs(os.path.join(mav, cam, "data"))
+        with open(os.path.join(mav, cam, "sensor.yaml"), "w") as f:
+            f.write(_sensor_yaml(tbs, ds.K, EUROC_HW[::-1]))
+    stamps = []
+    for k in range(N_FRAMES):
+        pkt = ds[k]
+        t_ns = 1403636579763555584 + int(round(k * 1e9 / 30))
+        stamps.append(t_ns)
+        for cam, key in (("cam0", "images"), ("cam1", "images_right")):
+            rgb = pkt[key].astype(np.float64)
+            gray = np.round(rgb @ [0.299, 0.587, 0.114]).astype(np.uint8)
+            write_png(os.path.join(mav, cam, "data", f"{t_ns}.png"), gray)
+            csv[cam].append(f"{t_ns},{t_ns}.png")
+        c2w = pkt["poses"].astype(np.float64)
+        tq = se3.from_matrix(torch.as_tensor(c2w)).tolist()
+        gt.append(f"{t_ns},{tq[0]},{tq[1]},{tq[2]},{tq[6]},{tq[3]},{tq[4]},"
+                  f"{tq[5]},0,0,0,0,0,0,0,0,0")
+    for cam, lines in csv.items():
+        with open(os.path.join(mav, cam, "data.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    os.makedirs(os.path.join(mav, "state_groundtruth_estimate0"))
+    with open(os.path.join(mav, "state_groundtruth_estimate0", "data.csv"),
+              "w") as f:
+        f.write("\n".join(gt) + "\n")
+    os.makedirs(os.path.join(mav, "imu0"))
+    with open(os.path.join(mav, "imu0", "sensor.yaml"), "w") as f:
+        f.write(_IMU_YAML)
+    imu = ["#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],"
+           "w_RS_S_z [rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],"
+           "a_RS_S_z [m s^-2]"]
+    for t in range(stamps[0] - 5_000_000, stamps[-1] + 5_000_001, 5_000_000):
+        imu.append(f"{t},0.0,0.0,0.0,0.0,0.0,9.81")
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+        f.write("\n".join(imu) + "\n")
+    return os.path.dirname(mav)
+
+
+def tum_phase(tmp: str, h_ref: dict) -> dict:
+    """(k) The CLI on the TUM-layout rendering with --rgbd and the
+    Sigma-TSDF map; the loader gives 384x512 frames."""
+    t0 = time.perf_counter()
+    d = write_tum(tmp)
+    write_s = time.perf_counter() - t0
+    res, launches, fe = cli_run(["--dataset_name", "tum", "--dataset_dir", d,
+                                 "--rgbd", "--fusion", "sigma"])
+    q = check_tracking("k", fe, launches)
+    log(f"(k) CLI --dataset_name tum --rgbd --fusion sigma, {TUM_HW[0]}x"
+        f"{TUM_HW[1]} PNGs (written in {write_s:.2f} s) read at "
+        f"{fe.H}x{fe.W}: {q['n_kf']} keyframes, {res['kf_per_s']:.4f} "
+        f"keyframes/s ({res['wall_s']:.2f} s; data stage "
+        f"{res['data_mean_ms']:.1f} ms a frame), ATE-RMSE Sim(3)-aligned "
+        f"{q['ate']:.4f} m (scale {q['scale']:.4f}), SE(3)-aligned "
+        f"{q['ate_se3']:.4f} m; path (h) RGB-D at {H}x{W}: {h_ref['ate']:.4f}"
+        f" m (scale {h_ref['scale']:.4f}); launches {launches}")
+    if (fe.H, fe.W) != TUM_OUT_HW:
+        raise RuntimeError(f"(k) the TUM loader gave {fe.H}x{fe.W}")
+    return {"launches": launches, "dir": d}
+
+
+def euroc_phase(tmp: str, g_ref: dict) -> dict:
+    """(l) The CLI on the EuRoC-layout stereo rendering, rectified to
+    336x640, --stereo without a map."""
+    from nerf_slam_tpu_torch.datasets import build_dataset
+    t0 = time.perf_counter()
+    root = write_euroc(tmp)
+    write_s = time.perf_counter() - t0
+    baseline = build_dataset("euroc", root, height=H, width=W,
+                             stereo=True).baseline
+    res, launches, fe = cli_run(["--dataset_name", "euroc", "--dataset_dir",
+                                 root, "--stereo", "--height", str(H),
+                                 "--width", str(W), "--fusion", "none"])
+    q = check_tracking("l", fe, launches)
+    n_stereo = int((fe.graph.ii == fe.graph.jj).sum())
+    log(f"(l) CLI --dataset_name euroc --stereo, {EUROC_HW[0]}x{EUROC_HW[1]}"
+        f" PNGs (written in {write_s:.2f} s) rectified to {fe.H}x{fe.W}: "
+        f"baseline recovered {baseline:.6f} m (rig {STEREO_BASELINE}), "
+        f"{n_stereo} (i, i) edges in the final graph, {q['n_kf']} keyframes,"
+        f" {res['kf_per_s']:.4f} keyframes/s ({res['wall_s']:.2f} s; data "
+        f"stage {res['data_mean_ms']:.1f} ms a frame), "
+        f"ATE-RMSE Sim(3)-aligned {q['ate']:.4f} m (scale {q['scale']:.4f}),"
+        f" SE(3)-aligned {q['ate_se3']:.4f} m; path (g) stereo at {H}x{W}: "
+        f"{g_ref['ate']:.4f} m (scale {g_ref['scale']:.4f}); launches "
+        f"{launches}")
+    if not abs(baseline - STEREO_BASELINE) <= 1e-4:
+        raise RuntimeError(f"(l) baseline {baseline} m, not "
+                           f"{STEREO_BASELINE} within 1e-4")
+    if n_stereo == 0:
+        raise RuntimeError("(l) no (i, i) stereo edges in the graph")
+    return {"launches": launches}
+
+
+def resume_phase(dev, frames, first, train_set, tmp: str) -> None:
+    """(m) The production tracker saved after keyframe RESUME_KF, loaded
+    into a fresh tracker and run to the end, against the sequential run;
+    a PE field saved after 500 iterations on the sequential run's
+    keyframes and resumed to 1000, against an uninterrupted 1000-iteration
+    fit."""
+    from nerf_slam_tpu_torch.fusion import NerfFusion, NerfFusionConfig
+    from nerf_slam_tpu_torch.utils import checkpoint
+    path = os.path.join(tmp, "frontend.npz")
+    fe = build_frontend(dev, W)
+    k = 0
+    while fe.kf_idx <= RESUME_KF and not fe.stop:
+        fe(k, frames[k])
+        k += 1
+    if fe.stop:
+        raise RuntimeError(f"(m) the sequence ended before keyframe "
+                           f"{RESUME_KF}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_frontend(path, fe)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path) / 2 ** 20
+    del fe
+    torch.cuda.empty_cache()
+    fe = build_frontend(dev, W)
+    t0 = time.perf_counter()
+    checkpoint.load_frontend(path, fe)
+    load_s = time.perf_counter() - t0
+    while k < len(frames) and not fe.stop:
+        fe(k, frames[k])
+        k += 1
+    same = same_bits(first, tracker_result(fe))
+    log(f"(m) tracker saved after keyframe {RESUME_KF} (frame "
+        f"{fe.kf_idx_to_f_idx[RESUME_KF]}; {size:.1f} MiB, save {save_s:.2f} "
+        f"s, load {load_s:.2f} s), "
+        f"resumed to frame {k - 1}: keyframes, poses and depths bit-identical "
+        f"to the sequential run: {same}")
+    del fe
+    os.remove(path)
+    torch.cuda.empty_cache()
+    if not same:
+        raise RuntimeError("(m) the resumed tracker differs from the "
+                           "sequential run")
+
+    def field():
+        f = NerfFusion(NerfFusionConfig(buffer=BUFFER, height=H, width=W,
+                                        batch_rays=4096), seed=SEED,
+                       device=dev)
+        f.train_set, f.has_data = train_set, True
+        return f
+
+    whole = field()
+    whole.fit_volume(1000)
+    half = field()
+    half.fit_volume(500)
+    path = os.path.join(tmp, "nerf.npz")
+    checkpoint.save_nerf(path, half)
+    resumed = NerfFusion(NerfFusionConfig(buffer=BUFFER, height=H, width=W,
+                                          batch_rays=4096), seed=SEED + 7,
+                         device=dev)
+    checkpoint.load_nerf(path, resumed)
+    resumed.fit_volume(500)
+    same = field_digest(whole) == field_digest(resumed)
+    log(f"(m) PE field saved after 500 iterations "
+        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB) and resumed to "
+        f"{resumed.iteration}: field bits equal to an uninterrupted "
+        f"{whole.iteration}-iteration fit: {same}")
+    os.remove(path)
+    if not same:
+        raise RuntimeError("(m) the resumed field differs from the "
+                           "uninterrupted fit")
+
+
+def profile_phase(tum_dir: str) -> dict:
+    """(o) (k)'s first PROFILE_FRAMES frames once more, --profile --fusion
+    none: the torch.profiler trace must exist and name kernel #1's device
+    function."""
+    from nerf_slam_tpu_torch.utils.runtime import default_trace_dir
+    trace_dir = default_trace_dir()
+    before = set(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else set()
+    res, launches, fe = cli_run(["--dataset_name", "tum", "--dataset_dir",
+                                 tum_dir, "--rgbd", "--fusion", "none",
+                                 "--final_k", str(PROFILE_FRAMES),
+                                 "--profile"])
+    check_tracking("o", fe, launches)
+    new = sorted(set(os.listdir(trace_dir)) - before)
+    if len(new) != 1:
+        raise RuntimeError(f"(o) expected one new trace in {trace_dir}, "
+                           f"found {new}")
+    path = os.path.join(trace_dir, new[0])
+    with open(path) as f:
+        text = f.read()
+    # the device function of #1 (gated, bf16 out); #2 is <float, true>
+    k1 = text.count("corr_lookup_grouped4_kernel<__nv_bfloat16, false>")
+    log(f"(o) CLI (k), its first {PROFILE_FRAMES} frames, with --profile "
+        f"--fusion none: {fe.kf_idx + 1} keyframes, {res['wall_s']:.2f} s "
+        f"under the profiler, trace {len(text) / 2 ** 20:.1f} MiB, "
+        f"{text.count('"cat": "kernel"')} kernel events, {k1} naming "
+        f"kernel #1's corr_lookup_grouped4_kernel<__nv_bfloat16, false> "
+        f"(counted launches {launches['corr_lookup_grouped4']})")
+    os.remove(path)
+    if k1 == 0:
+        raise RuntimeError("(o) the trace names no launch of kernel #1")
+    return {"launches": launches}
+
+
+def replica_phase(frames, tmp: str) -> None:
+    """The production frames in the Replica layout (JPEG color, 16-bit
+    depth PNGs, traj.txt, cam_params.json), tracked by the CLI, where a
+    JPEG codec (OpenCV or Pillow) is installed."""
+    from nerf_slam_tpu_torch.datasets.image_io import (jpeg_decoder_available,
+                                                       write_png)
+    if not jpeg_decoder_available():
+        log("Replica: not run on this machine: its JPEG color frames need "
+            "OpenCV (cv2) or Pillow (PIL), and neither imports here")
+        return
+    d = os.path.join(tmp, "replica", "room0")
+    os.makedirs(os.path.join(d, "results"))
+    try:
+        import cv2
+
+        def write_jpg(path, rgb):
+            cv2.imwrite(path, np.ascontiguousarray(rgb[..., ::-1]),
+                        [cv2.IMWRITE_JPEG_QUALITY, 95])
+    except ImportError:
+        from PIL import Image
+
+        def write_jpg(path, rgb):
+            Image.fromarray(rgb).save(path, quality=95)
+    traj = []
+    for k, pkt in enumerate(frames):
+        write_jpg(os.path.join(d, "results", f"frame{k:06d}.jpg"),
+                  pkt["images"])
+        write_png(os.path.join(d, "results", f"depth{k:06d}.png"),
+                  np.clip(np.round(pkt["depths"] * 6553.5), 0,
+                          65535).astype(np.uint16))
+        gl = pkt["poses"].astype(np.float64).copy()
+        gl[:3, 1:3] *= -1                      # OpenCV -> OpenGL axes
+        traj.append(" ".join(f"{v:.9f}" for v in gl.reshape(-1)))
+    with open(os.path.join(d, "traj.txt"), "w") as f:
+        f.write("\n".join(traj) + "\n")
+    K = frames[0]["intrinsics"]
+    with open(os.path.join(os.path.dirname(d), "cam_params.json"), "w") as f:
+        json.dump({"camera": {"w": W, "h": H, "fx": float(K[0]),
+                              "fy": float(K[1]), "cx": float(K[2]),
+                              "cy": float(K[3]), "scale": 6553.5}}, f)
+    res, launches, fe = cli_run(["--dataset_name", "replica",
+                                 "--dataset_dir", d, "--fusion", "none"])
+    q = check_tracking("replica", fe, launches)
+    log(f"Replica: CLI --dataset_name replica on the production frames "
+        f"written as JPEG + 16-bit PNG at {H}x{W}: {q['n_kf']} keyframes, "
+        f"{res['kf_per_s']:.4f} keyframes/s (data stage "
+        f"{res['data_mean_ms']:.1f} ms a frame), ATE-RMSE {q['ate']:.4f} m, "
+        f"launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1056,19 +1589,35 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     entries = kernel_phase(dev)
-    launches, train_set, pe = pipeline_phase(dev)
+    launches, train_set, pe, frames, first = pipeline_phase(dev)
     torch.cuda.empty_cache()
     launches.update(path_phase(dev))
-    sensor_phase(dev)
+    sensors = sensor_phase(dev)
     torch.cuda.empty_cache()
-    tsdf_phase(dev)
-    torch.cuda.empty_cache()
-    cli_phase(dev)
-    torch.cuda.empty_cache()
-    # the second fit is held to the first's bits over its first chunk
-    hash_phase(dev, train_set, pe, HASH_EVAL_EVERY)
-    torch.cuda.empty_cache()
-    mapper_phase(dev, train_set, pe)
+    with tempfile.TemporaryDirectory() as tmp:
+        tsdf_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        cli_phase(dev)
+        torch.cuda.empty_cache()
+        # the second fit is held to the first's bits over its first chunk
+        hash_phase(dev, train_set, pe, HASH_EVAL_EVERY)
+        torch.cuda.empty_cache()
+        mapper_phase(dev, train_set, pe)
+        torch.cuda.empty_cache()
+        paths = {"j": nerf_format_phase()}
+        torch.cuda.empty_cache()
+        paths["k"] = tum_phase(tmp, sensors["h"])
+        torch.cuda.empty_cache()
+        paths["l"] = euroc_phase(tmp, sensors["g"])
+        torch.cuda.empty_cache()
+        resume_phase(dev, frames, first, train_set, tmp)
+        torch.cuda.empty_cache()
+        paths["o"] = profile_phase(paths["k"]["dir"])
+        torch.cuda.empty_cache()
+        replica_phase(frames, tmp)
+    log("launches of kernels #1 / #2 on the new paths: " + ", ".join(
+        f"({tag}) {p['launches']['corr_lookup_grouped4']} / "
+        f"{p['launches']['corr_lookup_pyramid']}" for tag, p in paths.items()))
     for e in entries:
         e["launches"] = launches[e["name"]]
     log(f"chip_smoke: all phases passed in "

@@ -9,19 +9,22 @@ depth-supervised radiance field, ``sigma`` the uncertainty-weighted TSDF,
 ``tsdf`` the unweighted one, ``none``), sequential or ``--parallel_run``
 (one thread per stage on one card).  ``--stereo`` tracks with the
 dataset's right camera and the rig pose its packets carry (``stereo_rel``),
-``--rgbd`` seeds metric inverse depths from the packets' depths.  It
-prints one JSON line: wall time, keyframes and keyframes/s, each stage's
-mean spin time, ATE-RMSE against ground truth and, under ``--eval``, the
-map's evaluation row.
+``--rgbd`` seeds metric inverse depths from the packets' depths.
+``--dataset_name nerf|tum|euroc|replica|realsense`` with ``--dataset_dir``
+reads that format (EuRoC at ``--height`` x ``--width``, with ``--stereo``
+rectified to a shared pinhole); ``--profile`` writes a ``torch.profiler``
+trace of the run (``utils/runtime.profile_trace``: CPU ranges of the
+thread that runs the stages, CUDA kernels of every thread).  It prints
+one JSON line: wall time, keyframes and keyframes/s, each stage's mean
+spin time, ATE-RMSE against ground truth and, under ``--eval``, the map's
+evaluation row.
 
 It runs on the GPU; ``--device cpu`` (the one flag the JAX CLI lacks)
 runs it on the CPU, for the tests.  Features the port does not have yet
 raise, naming by its title the item of ROADMAP.md's module queue they
 wait for: ``--vio`` ("VIO"), ``--edge_shards`` > 1 and ``--device_split``
-("parallel/"), ``--gui`` and ``--viewer_port`` ("gui/"), ``--profile``
-and datasets other than the synthetic room ("The other datasets and
-utils"), and a ``.pth`` weights file ("Training": the ``droid.pth``
-conversion).
+("parallel/"), ``--gui`` and ``--viewer_port`` ("gui/"), and a ``.pth``
+weights file ("Training": the ``droid.pth`` conversion).
 """
 from __future__ import annotations
 
@@ -92,7 +95,6 @@ _REFUSED = (
     ("gui", bool, "gui/"),
     ("viewer_port", bool, "gui/"),
     ("device_split", bool, "parallel/"),
-    ("profile", bool, "The other datasets and utils (utils/runtime)"),
     ("edge_shards", lambda n: n > 1, "parallel/"),
 )
 
@@ -199,7 +201,14 @@ def run(args) -> dict:
         modules.insert(2, fusion_m)
 
     t0 = time.time()
-    if args.parallel_run:
+    if args.profile:
+        from ..utils.runtime import profile_trace
+        with profile_trace():
+            if args.parallel_run:
+                run_parallel(modules, timeout_s=3600.0)
+            else:
+                run_sequential(modules)
+    elif args.parallel_run:
         run_parallel(modules, timeout_s=3600.0)
     else:
         run_sequential(modules)

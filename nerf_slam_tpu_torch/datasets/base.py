@@ -123,10 +123,10 @@ def resize_to_multiple_of_8(img: np.ndarray, max_hw=(640, 640)
                             ) -> Tuple[np.ndarray, float, float]:
     """Resize so max dims fit and H, W are multiples of 8
     (nerf_dataset.py:54-62 semantics).  Returns (img, sx, sy)."""
-    import cv2
+    from .image_io import resize_area
     H, W = img.shape[:2]
     s = min(1.0, max_hw[0] / H, max_hw[1] / W)
     newH = int((H * s) // 8 * 8)
     newW = int((W * s) // 8 * 8)
-    out = cv2.resize(img, (newW, newH), interpolation=cv2.INTER_AREA)
+    out = resize_area(img, newH, newW)
     return out, newW / W, newH / H

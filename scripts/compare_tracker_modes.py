@@ -14,6 +14,11 @@ time.  Each tracker runs alone, from its own state, so the two agree to
 the extent that their rounding does not tip a keyframe decision.
 ``--corr_impl onehot`` (the plain lookup, no kernel) keeps the JAX run
 short at this size: the Pallas kernels run in interpret mode on the CPU.
+``--source gray`` feeds the same frames in gray (EuRoC's cameras are
+monochrome); ``--source euroc`` renders the room at EuRoC's aspect
+(480x752 scaled to the size), writes it in the EuRoC ``mav0/`` layout
+(``chip_smoke.write_euroc``) and feeds the port loader's packets,
+rectified to ``--height`` x ``--width``.
 
 It imports both packages (as the tests do).
 """
@@ -45,6 +50,8 @@ def parse_args(argv=None):
     p.add_argument("--width", type=int, default=320)
     p.add_argument("--frames", type=int, default=30)
     p.add_argument("--corr_impl", default="onehot")
+    p.add_argument("--source", choices=["synthetic", "gray", "euroc"],
+                   default="synthetic")
     p.add_argument("--packages", default="port,jax")
     p.add_argument("--threads", type=int, default=6)
     return p.parse_args(argv)
@@ -93,8 +100,37 @@ def jax_tracker(args, flat, kw):
     return F32(params, jfe.FrontendConfig(**kw), (args.height, args.width))
 
 
+def load_frames(args):
+    """The ``--frames`` packets of ``--source``."""
+    from nerf_slam_tpu_torch.datasets import (SyntheticConfig,
+                                              SyntheticDataset, build_dataset)
+    if args.source == "euroc":
+        import tempfile
+
+        import chip_smoke
+        chip_smoke.N_FRAMES = args.frames
+        chip_smoke.EUROC_HW = (args.height * 480 // 336,
+                               args.width * 752 // 640)
+        with tempfile.TemporaryDirectory() as tmp:
+            ds = build_dataset("euroc", chip_smoke.write_euroc(tmp),
+                               height=args.height, width=args.width,
+                               stereo=args.mode == "stereo")
+            return [ds[k] for k in range(len(ds))]
+    ds = SyntheticDataset(SyntheticConfig(
+        n_frames=args.frames, height=args.height, width=args.width,
+        stereo=args.mode == "stereo", baseline=0.1))
+    frames = [ds[k] for k in range(args.frames)]
+    if args.source == "gray":
+        for f in frames:
+            for key in ("images", "images_right"):
+                if key in f:
+                    g = np.round(f[key].astype(np.float64)
+                                 @ [0.299, 0.587, 0.114]).astype(np.uint8)
+                    f[key] = np.repeat(g[..., None], 3, -1)
+    return frames
+
+
 def main(argv=None) -> int:
-    from nerf_slam_tpu_torch.datasets import SyntheticConfig, SyntheticDataset
     from nerf_slam_tpu_torch.utils.checkpoint import load_arrays
     from nerf_slam_tpu_torch.utils.evaluation import (ate_rmse,
                                                       trajectory_from_packet,
@@ -103,10 +139,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(args.threads)
     flat, meta = load_arrays(os.path.join(ROOT, "weights_synthetic.npz"))
     kw = config(args, meta)
-    ds = SyntheticDataset(SyntheticConfig(
-        n_frames=args.frames, height=args.height, width=args.width,
-        stereo=args.mode == "stereo", baseline=0.1))
-    frames = [ds[k] for k in range(args.frames)]
+    frames = load_frames(args)
     build = {"port": port_tracker, "jax": jax_tracker}
     for name in args.packages.split(","):
         tracker = build[name](args, flat, kw)
@@ -121,7 +154,8 @@ def main(argv=None) -> int:
                    if hasattr(v, "shape") else v) for k, v in last.items()}
         est, gt = trajectory_from_packet(pkt)
         print(json.dumps({
-            "package": name, "mode": args.mode, "corr_impl": args.corr_impl,
+            "package": name, "mode": args.mode, "source": args.source,
+            "corr_impl": args.corr_impl,
             "size": [args.height, args.width],
             "keyframes": int(pkt["viz_count"]),
             "ate_sim3_m": ate_rmse(est, gt),

@@ -1,9 +1,9 @@
 """The port's ``slam_demo`` CLI and ``FusionModule`` modes on the CPU at a
 tiny size: the CLI runs the synthetic room through tracking and each map
-backend, and with ``--stereo`` and ``--rgbd``, and prints the JSON keys
-the JAX package's CLI prints; the flags whose features are not ported
-raise; the fusion stage's modes end as the
-JAX stage's do, and its commands act on the map."""
+backend, with ``--stereo``, ``--rgbd`` and ``--profile``, and TUM and
+EuRoC fixtures, and prints the JSON keys the JAX package's CLI prints;
+the flags whose features are not ported raise; the fusion stage's modes
+end as the JAX stage's do, and its commands act on the map."""
 import json
 import os
 
@@ -122,14 +122,77 @@ def test_cli_stereo_and_rgbd_run(capsys, monkeypatch, flag):
     (["--vio"], "VIO"),
     (["--gui"], "gui/"), (["--viewer_port", "8000"], "gui/"),
     (["--device_split"], "parallel/"),
-    (["--profile"], "The other datasets and utils"),
     (["--edge_shards", "2"], "parallel/"),
-    (["--weights", "droid.pth"], "Training"),
-    (["--dataset_name", "tum", "--dataset_dir", "x"],
-     "The other datasets and utils")])
+    (["--weights", "droid.pth"], "Training")])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         slam_demo.run(slam_demo.parse_args(["--device", "cpu"] + flags))
+
+
+def test_cli_profile_writes_a_trace(capsys, monkeypatch, tmp_path):
+    """``--profile`` wraps the run in a torch.profiler trace, written as a
+    Chrome trace to the temporary directory, and still prints the JAX
+    CLI's keys."""
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    res = slam_demo.run(slam_demo.parse_args(TINY + ["--fusion", "none",
+                                                     "--profile"]))
+    out = capsys.readouterr().out
+    assert "trace written to" in out
+    assert set(json.loads(out.strip().splitlines()[-1])) == set(res)
+    assert set(res) == BASE_KEYS and np.isfinite(res["ate_rmse_m"])
+    trace_dir = tmp_path / "nerf_slam_tpu_torch_trace"
+    files = list(trace_dir.iterdir())
+    assert len(files) == 1
+    assert "aten::" in files[0].read_text()
+
+
+def test_cli_tum_rgbd_runs(capsys, monkeypatch, tmp_path):
+    """``--dataset_name tum --rgbd`` on a TUM-layout fixture of the
+    synthetic room (the loader's 384x512 target cut to 48x64 for the
+    CPU): it tracks with the sensed depths and prints the JAX CLI's
+    keys."""
+    import functools
+
+    from nerf_slam_tpu.datasets import SyntheticConfig, SyntheticDataset
+    from nerf_slam_tpu_torch.datasets import tum_dataset
+    from test_torch_datasets import write_tum
+    synth = SyntheticDataset(SyntheticConfig(n_frames=10, height=48,
+                                             width=64))
+    d = write_tum(tmp_path / "rgbd_dataset_freiburg3_synth", synth, n=10)
+    monkeypatch.setattr(tum_dataset, "TumDataset", functools.partial(
+        tum_dataset.TumDataset, target_hw=(48, 64)))
+    built = []
+    build = slam_demo.build_frontend
+    monkeypatch.setattr(slam_demo, "build_frontend", lambda *a: built.append(
+        build(*a)) or built[-1])
+    res = _run(capsys, TINY + ["--dataset_name", "tum", "--dataset_dir", d,
+                               "--fusion", "none", "--rgbd"])
+    assert set(res) == BASE_KEYS
+    assert res["n_keyframes"] > 8 and np.isfinite(res["ate_rmse_m"])
+    fe = built[0]
+    assert fe.cfg.rgbd
+    assert bool((fe.state.idepths_sensed[:fe.kf_idx] > 0).all())
+
+
+def test_cli_euroc_stereo_runs(capsys, monkeypatch, tmp_path):
+    """``--dataset_name euroc --stereo`` on the EuRoC-layout fixture: the
+    loader rectifies the pair at --height x --width, the rig pose rides
+    the packets, and stereo (i, i) edges enter the graph."""
+    from test_torch_euroc import BASELINE, write_euroc
+    root = write_euroc(tmp_path / "V9_synth", n=10)
+    built = []
+    build = slam_demo.build_frontend
+    monkeypatch.setattr(slam_demo, "build_frontend", lambda *a: built.append(
+        build(*a)) or built[-1])
+    res = _run(capsys, TINY + ["--dataset_name", "euroc", "--dataset_dir",
+                               root, "--fusion", "none", "--stereo"])
+    assert set(res) == BASE_KEYS
+    assert res["n_keyframes"] > 8 and np.isfinite(res["ate_rmse_m"])
+    fe = built[0]
+    assert fe.cfg.stereo
+    assert abs(-fe.cfg.stereo_rel[0] - BASELINE) < 1e-4
+    assert int((fe.graph.ii == fe.graph.jj).sum()) > 0
 
 
 def test_cli_flags_and_defaults_match_the_jax_cli():

@@ -649,3 +649,55 @@ def test_tsdf_integrate_on_card_matches_cpu(dev):
     rgb, depth = fusions[1].render(p["poses"], p["intrinsics"], (60, 80))
     assert np.isfinite(rgb).all() and (depth > 0).mean() > 0.5
 
+
+
+def test_mesh_renderer_on_card_matches_cpu(dev):
+    """The ground-truth mesh renderer on the card against the CPU on a
+    random triangle soup: the same pixels hit, depths within 1e-5."""
+    from nerf_slam_tpu_torch.utils.evaluation import MeshRenderer
+    rng = np.random.RandomState(4)
+    n = 300
+    centers = rng.randn(n, 3) * [0.8, 0.6, 0.3] + [0, 0, 3.0]
+    verts = (centers[:, None, :] + rng.randn(n, 3, 3) * 0.4).reshape(-1, 3)
+    mesh = (verts.astype(np.float32),
+            np.arange(3 * n, dtype=np.int32).reshape(n, 3))
+    c2w = np.eye(4)
+    c2w[:3, 3] = [0.1, -0.05, 0.2]
+    depths = [MeshRenderer(mesh, (60.0, 56.0, 39.5, 30.0), (80, 60),
+                           tri_chunk=128, px_chunk=1024,
+                           device=d).render_mesh(c2w) for d in ("cpu", dev)]
+    assert (depths[0] > 0).mean() > 0.3
+    np.testing.assert_array_equal(depths[1] > 0, depths[0] > 0)
+    np.testing.assert_allclose(depths[1], depths[0], atol=1e-5)
+
+
+def test_flow_distance_matrix_on_card_matches_cpu(dev):
+    """``utils.rgbd``'s flow-distance matrix, both variants, on the card
+    against the CPU: the same pairs valid, values within 1e-5 relative."""
+    from nerf_slam_tpu_torch.geometry import se3
+    from nerf_slam_tpu_torch.utils import rgbd
+    n, h, w = 7, 12, 16
+    c2w = np.tile(np.eye(4), (n, 1, 1))
+    a = 0.25 * np.arange(n)
+    c2w[:, 0, 3], c2w[:, 2, 3] = np.sin(a), -2.0 + (1 - np.cos(a))
+    poses = se3.from_matrix(torch.as_tensor(np.linalg.inv(c2w),
+                                            dtype=torch.float32)).numpy()
+    disps = np.full((n, h, w), 0.5, np.float32) + np.linspace(
+        0, 0.2, w, dtype=np.float32)
+    intr = np.array([20.0, 20.0, w / 2, h / 2], np.float32)
+    for beta in (None, 0.4):
+        cpu, card = [rgbd.compute_distance_matrix_flow(
+            poses, disps, intr, beta=beta, chunk=16, device=d)
+            for d in ("cpu", dev)]
+        assert (np.isinf(cpu) == np.isinf(card)).all()
+        fin = np.isfinite(cpu)
+        np.testing.assert_allclose(card[fin], cpu[fin], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_device_peak_flops_names_the_card(dev):
+    from nerf_slam_tpu_torch.utils.runtime import device_peak_flops
+    name, bf16 = device_peak_flops()
+    assert name == torch.cuda.get_device_name(0)
+    if "H100 80GB HBM3" in name:
+        assert bf16 == 989e12 and device_peak_flops("f32")[1] == 67e12
