@@ -32,8 +32,8 @@ volume, the marching-tetrahedra mesh scored against the analytic surface,
 ray-cast PSNR and depth L1, each held to QUALITY.md's default row; (e)
 the ``slam_demo`` CLI with ``--fusion sigma --eval`` on the production
 frames and weights, sequentially (ATE-RMSE at most 0.25 m), then with
-``--stereo`` and with ``--rgbd`` (no map); (f) the hash-grid NeRF
-(default ``HashGridConfig``) fitted for 2000 iterations at 4096 rays on
+``--stereo`` and with ``--rgbd`` (no map, 15 frames); (f) the hash-grid
+NeRF (default ``HashGridConfig``) fitted for 1000 iterations at 4096 rays on
 the sequential run's keyframes, beside the PE field's fit on the same
 keyframes: the loss must stay finite and the PSNR of the last evaluation
 must exceed the first's; a second fit from the same seed, 500
@@ -48,7 +48,7 @@ edges), which must put (i, i) stereo edges into the graph, and (h) RGB-D
 (the packets' depths as sensed depths); both must launch kernels #1 and
 #2 and keep every pose and depth finite, and they print the Sim(3)- and
 SE(3)-aligned ATE and the Sim(3) scale.  Last, after (f), (i) the
-mapper's options on the sequential run's keyframes: a 2000-iteration PE
+mapper's options on the sequential run's keyframes: a 1000-iteration PE
 fit with pose refinement (``optimize_extrinsics``, from iteration 500,
 25 pose-only steps a 100-step cycle), the same with depth annealing over
 1000 iterations, a training-view render without the occupancy bound
@@ -80,15 +80,36 @@ of the ground truth; (o) (k)'s first 15 frames once more with
 function; and Replica (JPEG color frames) where OpenCV or Pillow imports,
 else one line saying why it was not run.
 
+Then the visual-inertial and the training paths: (p) the CLI with
+``--vio`` on the production frames: one inertial state a packet the SLAM
+stage takes (it stops when the tracker's 24-keyframe buffer is full), an
+incremental backend that relinearizes and reuses factors, a finite
+estimate, and the tracker's keyframes, poses and depths equal to the same
+run without ``--vio`` to the bit; the inertial chain replayed on the CPU
+from the same packets, within 1e-4 m and 1e-4 rad of the card's; the
+largest position error against ground truth and the backend's ms a
+frame.  (q) the trainer (``cli/train_droid_synthetic.run_phase``): three
+optimizer steps of the p2b phase (192x320, 7 frames, 8 GRU iterations,
+remat, 4 scenes a step, EMA 0.998; 12 seed-fixed scenes and 2 held out)
+from ``weights_synthetic.npz``, twice, the two results equal to the bit;
+one step of p4b (336x640, 5 frames) from there; loss, finite gradients,
+s a scene-gradient and an optimizer step, peak memory; the result
+through the CLI's ``--weights`` on the production cell (ATE-RMSE at most
+0.25 m), and a ``droid.pth``-named state dict of the weights through
+``--weights``.
+
 Output, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the pipeline and path lines (a)-(o) and
-Replica, the launches of #1 and #2 on (j), (k), (l) and (o), the
+Replica, (p) and (q), each phase's end time, the launches of #1 and #2
+on (j), (k), (l), (o) and (p), the
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero without the ``ok`` line.  Needs a CUDA device;
-imports no JAX.
+imports no JAX.  ``--only p,q`` runs (p) and (q) alone (a partial run,
+without the kernel line or the ``ok`` line).
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import math
@@ -129,8 +150,11 @@ TOL_BF16, TOL_F32 = 1.6e-2, 1e-5
 TSDF_FRAMES, TSDF_H, TSDF_W = 20, 240, 320
 TSDF_REF = {"mesh_err_mean_cm": (0.237, 0.02), "psnr_db": (31.15, 0.5),
             "depth_l1_cm": (0.71, 0.1)}
-# (f): the hash grid's fit, evaluated every HASH_EVAL_EVERY iterations
+# (f): the hash grid's fit, evaluated every HASH_EVAL_EVERY iterations;
+# (i): the PE fits with the mapper's options; (e): the CLI's --stereo and
+# --rgbd runs (a run past 540 s cut these three from 2000, 2000 and 30)
 HASH_EVAL_EVERY = 500
+HASH_ITERS, OPTION_ITERS, CLI_SENSOR_FRAMES = 1000, 1000, 15
 # (g): the synthetic rig's baseline, metres along the camera's +x
 STEREO_BASELINE = 0.1
 # (i): the pose refinement's schedule
@@ -157,6 +181,12 @@ RESUME_KF = 12
 # a minute of the run; the first call past 450 s cut them to 15)
 PROFILE_FRAMES = 15
 WEIGHTS = os.path.join(ROOT, "weights_synthetic.npz")
+# (p): the card's inertial chain against its CPU replay (m and rad)
+VIO_TOL = 1e-4
+# (q): the trainer's phases cut to a few steps and seed-fixed scenes (the
+# widths, frames, GRU iterations, accumulation and EMA are the phases')
+TRAIN_CUT = {"p2b": dict(steps=3, scenes=12, holdout=2),
+             "p4b": dict(steps=1, scenes=4, holdout=1)}
 DEVICE = "cuda"             # the CLI's and the renderer's device
 # the library yardstick of the one-level kernels, F.grid_sample, takes its
 # grid in the volume's type: in bf16 the sampling positions themselves are
@@ -911,13 +941,13 @@ def cli_phase(dev):
     from nerf_slam_tpu_torch.cli import slam_demo
     from nerf_slam_tpu_torch.ops import corr_lookup
 
-    for flags in (["--fusion", "sigma", "--eval"],
-                  ["--fusion", "none", "--stereo"],
-                  ["--fusion", "none", "--rgbd"]):
+    for flags, frames in ((["--fusion", "sigma", "--eval"], N_FRAMES),
+                          (["--fusion", "none", "--stereo"], CLI_SENSOR_FRAMES),
+                          (["--fusion", "none", "--rgbd"], CLI_SENSOR_FRAMES)):
         args = slam_demo.parse_args([
             "--weights", os.path.join(ROOT, "weights_synthetic.npz"),
             "--height", str(H), "--width", str(W), "--n_frames",
-            str(N_FRAMES), "--buffer", str(BUFFER), "--out", os.devnull,
+            str(frames), "--buffer", str(BUFFER), "--out", os.devnull,
             "--device", dev.type] + flags)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -930,7 +960,7 @@ def cli_phase(dev):
                 f"{res.get('fusion_depth_l1_cm')}" if "--eval" in flags
                 else "")
         log(f"(e) CLI {' '.join(flags)} {H}x{W}: {res['n_keyframes']} "
-            f"keyframes of {N_FRAMES} frames, {res['kf_per_s']:.4f} "
+            f"keyframes of {frames} frames, {res['kf_per_s']:.4f} "
             f"keyframes/s ({res['wall_s']:.2f} s), ATE-RMSE {ate:.4f} m"
             f"{tsdf}, peak memory {peak:.2f} GiB, launches {launches}")
         missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
@@ -979,18 +1009,18 @@ def hash_fit(dev, train_set, iters: int):
 
 def hash_phase(dev, train_set, pe, second_iters: int):
     """(f) The hash-grid NeRF fitted on the sequential run's keyframes,
-    NGP_HORIZON iterations at 4096 rays, evaluated every HASH_EVAL_EVERY;
+    HASH_ITERS iterations at 4096 rays, evaluated every HASH_EVAL_EVERY;
     beside the PE field's fit on the same keyframes (``pe``).  A second
     fit from the same seed, ``second_iters`` iterations, must give the
     same field bits and losses at every evaluation it reaches."""
     torch.cuda.reset_peak_memory_stats()
-    fit_s, losses, rows, digests = hash_fit(dev, train_set, NGP_HORIZON)
+    fit_s, losses, rows, digests = hash_fit(dev, train_set, HASH_ITERS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     psnrs = [r["psnr"] for r in rows]
     log(f"(f) hash-grid NeRF {H}x{W}, {int(train_set.valid.sum())} keyframes:"
         f" PSNR {', '.join(f'{p:.4f}' for p in psnrs)} dB at iterations "
         f"{[r['iteration'] for r in rows]}, loss {losses}, "
-        f"{NGP_HORIZON / fit_s:.1f} steps/s, peak memory {peak:.2f} GiB; "
+        f"{HASH_ITERS / fit_s:.1f} steps/s, peak memory {peak:.2f} GiB; "
         f"PE field on the same keyframes: PSNR {pe['psnr']:.2f} dB after "
         f"{NGP_HORIZON} iterations, {pe['steps_s']:.1f} steps/s, peak "
         f"memory {pe['peak_gib']:.2f} GiB")
@@ -1009,7 +1039,7 @@ def hash_phase(dev, train_set, pe, second_iters: int):
     if not same:
         raise RuntimeError("(f) the hash-grid fit is not reproducible: a "
                            "second fit from the same seed differs")
-    return NGP_HORIZON / fit_s
+    return HASH_ITERS / fit_s
 
 
 def sensor_phase(dev):
@@ -1075,7 +1105,7 @@ def sensor_phase(dev):
 
 def mapper_phase(dev, train_set, pe):
     """(i) The PE field with pose refinement, then with depth annealing
-    too, NGP_HORIZON iterations each on the sequential run's keyframes;
+    too, OPTION_ITERS iterations each on the sequential run's keyframes;
     renders without the occupancy bound and at the dynamic resolution."""
     from nerf_slam_tpu_torch.fusion import NerfFusion, NerfFusionConfig
     base = dict(buffer=BUFFER, height=H, width=W, batch_rays=4096)
@@ -1089,13 +1119,13 @@ def mapper_phase(dev, train_set, pe):
         fusion.has_data = True
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = float(fusion.fit_volume(NGP_HORIZON))
+        loss = float(fusion.fit_volume(OPTION_ITERS))
         torch.cuda.synchronize()
-        steps_s = NGP_HORIZON / (time.perf_counter() - t0)
+        steps_s = OPTION_ITERS / (time.perf_counter() - t0)
         row = fusion.evaluate_training_views(max_views=8)
         deltas = fusion.pose_deltas.detach()
         n_views = int(train_set.valid.sum())
-        log(f"(i) PE fit with {tag}, {NGP_HORIZON} iterations: "
+        log(f"(i) PE fit with {tag}, {OPTION_ITERS} iterations: "
             f"{steps_s:.1f} steps/s (plain fit {pe['steps_s']:.1f}), PSNR "
             f"{row['psnr']:.4f} dB (plain {pe['psnr']:.4f}), scale-aligned "
             f"depth L1 {row['depth_l1_aligned_cm']:.4f} cm, loss {loss:.5f},"
@@ -1147,6 +1177,11 @@ def mapper_phase(dev, train_set, pe):
 KERNELS_12 = ("corr_lookup_grouped4", "corr_lookup_pyramid")
 
 
+def sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
 def cli_run(flags):
     """``slam_demo.run`` with ``flags`` on the card, sequentially, the
     launch counters zeroed just before it.  Returns (results, launches,
@@ -1160,10 +1195,10 @@ def cli_run(flags):
         args = slam_demo.parse_args(
             ["--weights", WEIGHTS, "--buffer", str(BUFFER), "--out",
              os.devnull, "--device", DEVICE] + flags)
-        torch.cuda.synchronize()
+        sync()
         corr_lookup.reset_launches()
         res = slam_demo.run(args)
-        torch.cuda.synchronize()
+        sync()
         launches = dict(corr_lookup.launches)
     finally:
         slam_demo.build_frontend = build
@@ -1555,7 +1590,216 @@ def replica_phase(frames, tmp: str) -> None:
         f"launches {launches}")
 
 
-def main() -> int:
+class _Recorder:
+    """An inertial frontend that keeps what it was given (the IMU rows,
+    the frame's ground-truth pose) and forwards the call."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.packets = []
+
+    def __call__(self, batch):
+        self.packets.append({"k": batch["k"],
+                             "imu_t0_t1": batch.get("imu_t0_t1"),
+                             "poses": np.asarray(batch["poses"]),
+                             "is_last_frame": batch.get("is_last_frame")})
+        return self.inner(batch)
+
+
+class _NoVisualFrontend:
+    """VioSLAM's visual-frontend contract without the tracker (the CPU
+    replay of the inertial chain)."""
+
+    def __call__(self, k, packet):
+        return None
+
+    def stop_condition(self):
+        return False
+
+
+def vio_phase() -> dict:
+    """(p) ``slam_demo --vio`` on the production frames: one inertial state
+    a packet the SLAM stage takes, an incremental backend (relinearized and reused factors), a
+    finite estimate, the tracker's keyframes, poses and depths equal to
+    the same run without ``--vio`` to the bit; the inertial chain replayed
+    on the CPU from the same packets within VIO_TOL of the card's."""
+    from nerf_slam_tpu_torch.cli import slam_demo
+    from nerf_slam_tpu_torch.geometry import se3
+    from nerf_slam_tpu_torch.slam import (NavState,
+                                          PreIntegrationInertialFrontend,
+                                          VioSLAM)
+    from nerf_slam_tpu_torch.solver.factor_graph import Key
+
+    built, backend_s = [], []
+    build = slam_demo.build_tracker
+
+    def build_recorded(*a):
+        vio = build(*a)
+        inner = vio.inertial_frontend
+        vio.init = NavState(pose=inner.state.pose.copy(),
+                            vel=inner.state.vel.copy())
+        vio.inertial_frontend = _Recorder(inner)
+        update = vio.backend.update
+
+        def timed(*u):
+            sync()
+            t0 = time.perf_counter()
+            out = update(*u)
+            sync()
+            backend_s.append(time.perf_counter() - t0)
+            return out
+        vio.backend.update = timed
+        built.append(vio)
+        return vio
+
+    base = ["--height", str(H), "--width", str(W), "--n_frames",
+            str(N_FRAMES), "--fusion", "none"]
+    slam_demo.build_tracker = build_recorded
+    try:
+        res, launches, fe = cli_run(base + ["--vio"])
+    finally:
+        slam_demo.build_tracker = build
+    vio = built[0]
+    stats = dict(vio.backend.stats)
+    est = vio.backend.estimate
+    keys = est.keys()
+    # one inertial state a packet the SLAM stage took (it ends when the
+    # tracker's keyframe buffer is full, in JAX as in the port)
+    n_pkt = len(vio.inertial_frontend.packets)
+    if not (res["vio_states"] == n_pkt == stats["updates"]
+            and res["vio_relinearized"] > 0 and stats["reused"] > 0):
+        raise RuntimeError(f"(p) VIO states {res['vio_states']} of {n_pkt} "
+                           f"packets, stats {stats}")
+    if not all(torch.isfinite(est.at(k)).all() for k in keys):
+        raise RuntimeError("(p) non-finite VIO estimate")
+    check_tracking("p", fe, launches)
+    res0, launches0, fe0 = cli_run(base)
+    if not same_bits(tracker_result(fe), tracker_result(fe0)):
+        raise RuntimeError("(p) the tracker under --vio differs from the "
+                           "run without it")
+
+    # the inertial chain again on the CPU, from the same packets
+    packets = vio.inertial_frontend.packets
+    inner = vio.inertial_frontend.inner
+    cpu = VioSLAM(_NoVisualFrontend(), PreIntegrationInertialFrontend(
+        inner.calib, vio.init), device="cpu")
+    t0 = time.perf_counter()
+    for pkt in packets:
+        cpu(pkt)
+    cpu_s = time.perf_counter() - t0
+    ce = cpu.backend.estimate
+    dpos = max(float((est.at(k)[:3].cpu() - ce.at(k)[:3]).norm())
+               for k in keys if k.name == "x")
+    drot = max(float(se3.log_so3(se3.quat_mul(
+        se3.quat_inv(ce.at(k)[3:7]), est.at(k)[3:7].cpu())).norm())
+        for k in keys if k.name == "x")
+    dvel = max(float((est.at(k).cpu() - ce.at(k)).abs().max())
+               for k in keys if k.name == "v")
+    if not (dpos <= VIO_TOL and drot <= VIO_TOL):
+        raise RuntimeError(f"(p) card vs CPU inertial chain: {dpos} m, "
+                           f"{drot} rad")
+    gt_err = max(float(np.linalg.norm(est.at(Key("x", p["k"]))[:3].cpu()
+                                      .numpy() - p["poses"][:3, 3]))
+                 for p in packets)
+    log(f"(p) CLI --vio {H}x{W}: {res['n_keyframes']} keyframes, "
+        f"{res['vio_states']} inertial states ({n_pkt} packets of "
+        f"{N_FRAMES} frames reached the SLAM stage), backend relinearized "
+        f"{stats['relinearized']} / reused {stats['reused']} factors over "
+        f"{stats['updates']} updates; the tracker equal to the run "
+        f"without --vio to the bit (ATE-RMSE {res['ate_rmse_m']:.6f} m); "
+        f"largest VIO position error vs ground truth {gt_err:.6e} m; "
+        f"backend {1e3 * sum(backend_s) / len(packets):.2f} ms a frame on "
+        f"the card (first {1e3 * backend_s[0]:.1f}, median "
+        f"{1e3 * float(np.median(backend_s)):.1f}, last "
+        f"{1e3 * backend_s[-1]:.1f} ms), {1e3 * cpu_s / len(packets):.2f} "
+        f"ms on the CPU; card "
+        f"vs CPU chain: position {dpos:.3e} m, rotation {drot:.3e} rad, "
+        f"velocity {dvel:.3e} m/s; launches #1 / #2 "
+        f"{launches['corr_lookup_grouped4']} / "
+        f"{launches['corr_lookup_pyramid']}")
+    return {"launches": launches}
+
+
+def training_phase(tmp: str) -> None:
+    """(q) The trainer on the card: TRAIN_STEPS optimizer steps of p2b,
+    twice from weights_synthetic.npz, bit-equal; one step of p4b from the
+    result; those weights tracked through the CLI (ATE-RMSE at most
+    ATE_LIMIT_M); a droid.pth-named state dict through ``--weights``."""
+    from nerf_slam_tpu_torch.cli import train_droid_synthetic as trainer
+    from nerf_slam_tpu_torch.models import DroidNet, load_flax_weights
+    from nerf_slam_tpu_torch.models.weights import to_reference
+    from nerf_slam_tpu_torch.utils.checkpoint import load_arrays
+
+    specs = {s["name"]: s for s in trainer.PHASES["stable"]}
+    out = {}
+    for tag, name, init, over in (
+            ("a", "p2b", WEIGHTS, TRAIN_CUT["p2b"]),
+            ("b", "p2b", WEIGHTS, TRAIN_CUT["p2b"]),
+            ("c", "p4b", None, TRAIN_CUT["p4b"])):
+        spec = {**specs[name], **over}
+        path = os.path.join(tmp, f"train_{tag}.npz")
+        sync()
+        t0 = time.perf_counter()
+        summary = trainer.run_phase(spec, init or out["a"][0], path,
+                                    device=DEVICE, log=lambda s: None)
+        wall = time.perf_counter() - t0
+        m = summary["metrics"]
+        log(f"(q) train {name} {spec['H']}x{spec['W']} x{spec['frames']} "
+            f"frames, {spec['steps']} steps x {spec['accum']} scenes "
+            f"({spec['scenes']} scenes, {spec['holdout']} held out): loss "
+            f"{m['loss']:.6f} (geo {m['geodesic']:.6f}), gradients finite "
+            f"{summary['grads_finite']}, {summary['s_per_grad']:.3f} s a "
+            f"scene-gradient, {summary['s_per_step']:.3f} s an optimizer "
+            f"step, peak memory {summary['peak_mem_gib']} GiB, phase "
+            f"wall {wall:.1f} s")
+        if not (summary["grads_finite"] and math.isfinite(m["loss"])):
+            raise RuntimeError(f"(q) {name}: non-finite loss or gradients")
+        out[tag] = (path, load_arrays(path)[0])
+    fa, fb = out["a"][1], out["b"][1]
+    differ = [k for k in fa if not np.array_equal(fa[k], fb[k])]
+    if differ:
+        raise RuntimeError(f"(q) two p2b runs differ in {len(differ)} of "
+                           f"{len(fa)} tensors, e.g. {differ[:3]}")
+    moved = sum(not np.array_equal(fa[k], load_arrays(WEIGHTS)[0][k])
+                for k in fa)
+    log(f"(q) the two p2b runs equal to the bit ({len(fa)} tensors, "
+        f"{moved} moved from the warm start)")
+
+    res, launches, _ = cli_run(["--height", str(H), "--width", str(W),
+                                "--n_frames", str(N_FRAMES), "--fusion",
+                                "none", "--weights", out["c"][0]])
+    ate = res.get("ate_rmse_m", math.nan)
+    log(f"(q) the trained weights through --weights: {res['n_keyframes']} "
+        f"keyframes, ATE-RMSE {ate:.6f} m, {res['kf_per_s']:.4f} "
+        f"keyframes/s")
+    if not ate <= ATE_LIMIT_M:
+        raise RuntimeError(f"(q) ATE-RMSE {ate} m > {ATE_LIMIT_M}")
+
+    net = load_flax_weights(DroidNet(dtype=torch.float32),
+                            load_arrays(WEIGHTS)[0])
+    pth = os.path.join(tmp, "droid.pth")
+    torch.save(to_reference(net.state_dict()), pth)
+    res, launches, fe = cli_run(["--height", str(H), "--width", str(W),
+                                 "--n_frames", str(N_FRAMES), "--fusion",
+                                 "none", "--weights", pth])
+    want = net.state_dict()
+    if not all(torch.equal(v.cpu(), want[k].to(v.dtype))
+               for k, v in fe.net.state_dict().items()):
+        raise RuntimeError("(q) droid.pth weights differ from the source")
+    log(f"(q) droid.pth through --weights: {res['n_keyframes']} keyframes, "
+        f"ATE-RMSE {res.get('ate_rmse_m', math.nan):.6f} m (no damping "
+        f"sidecar: the tracker's default damping), launches #1 / #2 "
+        f"{launches['corr_lookup_grouped4']} / "
+        f"{launches['corr_lookup_pyramid']}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                 "GPU")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases among p,q to run alone "
+                         "(a partial run: no kernels or ok line)")
+    only = [t for t in ap.parse_args(argv).only.split(",") if t]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1588,33 +1832,54 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    if only:
+        with tempfile.TemporaryDirectory() as tmp:
+            if "p" in only:
+                vio_phase()
+            if "q" in only:
+                training_phase(tmp)
+        log(f"chip_smoke: phases {only} passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    def mark(tag: str) -> None:
+        torch.cuda.empty_cache()
+        log(f"[{time.perf_counter() - t_start:.1f} s] {tag} done")
+
     entries = kernel_phase(dev)
+    mark("kernels")
     launches, train_set, pe, frames, first = pipeline_phase(dev)
-    torch.cuda.empty_cache()
+    mark("main path")
     launches.update(path_phase(dev))
+    mark("(a)-(c)")
     sensors = sensor_phase(dev)
-    torch.cuda.empty_cache()
+    mark("(g), (h)")
     with tempfile.TemporaryDirectory() as tmp:
         tsdf_phase(dev, tmp)
-        torch.cuda.empty_cache()
+        mark("(d), (n)")
         cli_phase(dev)
-        torch.cuda.empty_cache()
+        mark("(e)")
         # the second fit is held to the first's bits over its first chunk
         hash_phase(dev, train_set, pe, HASH_EVAL_EVERY)
-        torch.cuda.empty_cache()
+        mark("(f)")
         mapper_phase(dev, train_set, pe)
-        torch.cuda.empty_cache()
+        mark("(i)")
         paths = {"j": nerf_format_phase()}
-        torch.cuda.empty_cache()
+        mark("(j)")
         paths["k"] = tum_phase(tmp, sensors["h"])
-        torch.cuda.empty_cache()
+        mark("(k)")
         paths["l"] = euroc_phase(tmp, sensors["g"])
-        torch.cuda.empty_cache()
+        mark("(l)")
         resume_phase(dev, frames, first, train_set, tmp)
-        torch.cuda.empty_cache()
+        mark("(m)")
         paths["o"] = profile_phase(paths["k"]["dir"])
-        torch.cuda.empty_cache()
+        mark("(o)")
         replica_phase(frames, tmp)
+        mark("Replica")
+        paths["p"] = vio_phase()
+        mark("(p)")
+        training_phase(tmp)
+        mark("(q)")
     log("launches of kernels #1 / #2 on the new paths: " + ", ".join(
         f"({tag}) {p['launches']['corr_lookup_grouped4']} / "
         f"{p['launches']['corr_lookup_pyramid']}" for tag, p in paths.items()))

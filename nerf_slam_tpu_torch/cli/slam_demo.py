@@ -9,7 +9,10 @@ depth-supervised radiance field, ``sigma`` the uncertainty-weighted TSDF,
 ``tsdf`` the unweighted one, ``none``), sequential or ``--parallel_run``
 (one thread per stage on one card).  ``--stereo`` tracks with the
 dataset's right camera and the rig pose its packets carry (``stereo_rel``),
-``--rgbd`` seeds metric inverse depths from the packets' depths.
+``--rgbd`` seeds metric inverse depths from the packets' depths,
+``--vio`` adds the inertial chain (``VioSLAM``: IMU preintegration into
+the incremental backend, beside the tracker) and reports ``vio_states``
+and ``vio_relinearized``.
 ``--dataset_name nerf|tum|euroc|replica|realsense`` with ``--dataset_dir``
 reads that format (EuRoC at ``--height`` x ``--width``, with ``--stereo``
 rectified to a shared pinhole); ``--profile`` writes a ``torch.profiler``
@@ -20,11 +23,12 @@ spin time, ATE-RMSE against ground truth and, under ``--eval``, the map's
 evaluation row.
 
 It runs on the GPU; ``--device cpu`` (the one flag the JAX CLI lacks)
-runs it on the CPU, for the tests.  Features the port does not have yet
-raise, naming by its title the item of ROADMAP.md's module queue they
-wait for: ``--vio`` ("VIO"), ``--edge_shards`` > 1 and ``--device_split``
-("parallel/"), ``--gui`` and ``--viewer_port`` ("gui/"), and a ``.pth``
-weights file ("Training": the ``droid.pth`` conversion).
+runs it on the CPU, for the tests.  ``--weights`` takes the flat-key
+``.npz`` (with its damping sidecar) or a DROID ``droid.pth``
+(``models/weights.py``).  Features the port does not have yet raise,
+naming by its title the item of ROADMAP.md's module queue they wait for:
+``--edge_shards`` > 1 and ``--device_split`` ("parallel/"), ``--gui`` and
+``--viewer_port`` ("gui/").
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ def parse_args(argv=None):
                    help="visual-inertial SLAM")
     p.add_argument("--weights", type=str, default=None,
                    help=".npz weights (flat flax keys, with a .json "
-                        "damping sidecar); random weights otherwise")
+                        "damping sidecar) or a droid.pth; random weights "
+                        "otherwise")
     p.add_argument("--fusion", type=str, default="nerf",
                    choices=["nerf", "sigma", "tsdf", "none"])
     p.add_argument("--mask_type", type=str, default="ours",
@@ -91,7 +96,6 @@ def parse_args(argv=None):
 # flags whose features are not ported: (attribute, refused when, the title
 # of the ROADMAP.md item that ports them)
 _REFUSED = (
-    ("vio", bool, "VIO"),
     ("gui", bool, "gui/"),
     ("viewer_port", bool, "gui/"),
     ("device_split", bool, "parallel/"),
@@ -105,10 +109,6 @@ def check_args(args) -> None:
         if refused(getattr(args, name)):
             raise NotImplementedError(
                 f"--{name} is not ported yet: ROADMAP.md, module {item}")
-    if args.weights and not args.weights.endswith(".npz"):
-        raise NotImplementedError(
-            "only .npz weights load: the droid.pth conversion is not "
-            "ported yet: ROADMAP.md, module Training")
 
 
 def build_dataset(args):
@@ -117,14 +117,16 @@ def build_dataset(args):
                    n_frames=args.n_frames, height=args.height,
                    width=args.width, initial_k=args.initial_k,
                    final_k=args.final_k, buffer=args.buffer,
-                   stereo=args.stereo)
+                   stereo=args.stereo, imu=args.vio)
 
 
 def build_frontend(args, image_size, stereo_rel=None):
-    """The tracker with the ``--weights`` .npz (and its damping sidecar)
-    or random weights drawn from ``--seed``; ``--stereo`` with the rig pose
-    ``stereo_rel`` (cam1_T_cam0, the dataset's), ``--rgbd``."""
+    """The tracker with the ``--weights`` .npz (and its damping sidecar),
+    a ``droid.pth``, or random weights drawn from ``--seed``; ``--stereo``
+    with the rig pose ``stereo_rel`` (cam1_T_cam0, the dataset's),
+    ``--rgbd``."""
     from ..models import DroidNet, load_flax_weights
+    from ..models.weights import load_droid_pth
     from ..tracking import FrontendConfig, RaftVisualFrontend
     from ..utils.checkpoint import load_arrays
 
@@ -132,7 +134,10 @@ def build_frontend(args, image_size, stereo_rel=None):
     # bf16 on the card, as the JAX package computes; f32 on the CPU
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     damping_kw = {}
-    if args.weights:
+    if args.weights and not args.weights.endswith(".npz"):
+        net = DroidNet(dtype=dtype)
+        net.load_state_dict(load_droid_pth(args.weights))
+    elif args.weights:
         flat, meta = load_arrays(args.weights)
         net = load_flax_weights(DroidNet(dtype=dtype), flat)
         # the BA damping recipe the weights were trained with
@@ -152,6 +157,30 @@ def build_frontend(args, image_size, stereo_rel=None):
                          global_ba=args.global_ba, stereo=args.stereo,
                          rgbd=args.rgbd, **damping_kw)
     return RaftVisualFrontend(net, cfg, image_size, device=dev)
+
+
+def build_tracker(args, dataset, probe, frontend):
+    """The SLAM stage's object: the tracker, or under ``--vio`` a
+    ``VioSLAM`` with the inertial frontend seeded from the first packet's
+    pose and the dataset's velocity at its time (zero where the dataset
+    has none), its backend on ``--device``."""
+    if not args.vio:
+        return frontend
+    import numpy as np
+    from ..datasets.base import ImuCalibration
+    from ..geometry import se3
+    from ..slam import NavState, PreIntegrationInertialFrontend, VioSLAM
+    from ..solver.factor_graph import as_f32
+    calib = getattr(dataset, "imu", None) or ImuCalibration()
+    pose0 = np.array([0, 0, 0, 0, 0, 0, 1.0])
+    if probe.get("poses") is not None:
+        pose0 = se3.from_matrix(as_f32(probe["poses"])).numpy()
+    vel0 = np.zeros(3)
+    if hasattr(dataset, "velocity_at"):
+        vel0 = dataset.velocity_at(float(probe["t_cams"]))
+    inertial = PreIntegrationInertialFrontend(
+        calib, NavState(pose=pose0, vel=vel0), timestamps_ns=True)
+    return VioSLAM(frontend, inertial, device=args.device)
 
 
 def build_fusion(args):
@@ -187,10 +216,11 @@ def run(args) -> dict:
     frontend = build_frontend(args, image_size,
                               probe.get("stereo_rel") if args.stereo
                               else None)
+    tracker = build_tracker(args, dataset, probe, frontend)
     fusion, fusion_mode = build_fusion(args)
 
     data_m = DataModule(dataset, img_stride=args.img_stride)
-    slam_m = SlamModule(frontend)
+    slam_m = SlamModule(tracker)
     sink = EvalSink()
     modules = [data_m, slam_m, sink]
     connect(data_m, slam_m, "data")
@@ -224,6 +254,10 @@ def run(args) -> dict:
         est, gt = trajectory_from_packet(sink.last_full)
         if est.shape[0] >= 3:
             results["ate_rmse_m"] = ate_rmse(est, gt)
+    if args.vio and tracker.backend.estimate is not None:
+        results["vio_states"] = sum(
+            1 for k in tracker.backend.estimate.keys() if k.name == "x")
+        results["vio_relinearized"] = tracker.backend.stats["relinearized"]
 
     if args.fit_iters and fusion_mode == "nerf" \
             and fusion.iteration < args.fit_iters:

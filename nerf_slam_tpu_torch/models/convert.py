@@ -6,7 +6,9 @@ The port's modules keep the flax module names, so a key maps to
 ``context_net.conv1.weight`` with the kernel transposed: conv kernels
 HWIO -> OIHW, dense kernels (in, out) -> (out, in).  This is the inverse
 of the JAX package's droid.pth conversion (models/weights.py) and serves
-both ``DroidNet`` and the NeRF ``PEField``.
+both ``DroidNet`` and the NeRF ``PEField``; :func:`state_dict_to_flax`
+is its inverse (the trainer writes its weights in the flax keys, so both
+packages load them).
 """
 from __future__ import annotations
 
@@ -36,6 +38,26 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray],
         else:
             raise KeyError(f"unexpected parameter leaf in {key!r}")
         out[name] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
+                       prefix: str = "params.") -> Dict[str, np.ndarray]:
+    """``state_dict`` -> flat flax keys (f32 host arrays): the inverse of
+    :func:`flax_to_state_dict`."""
+    out = {}
+    for name, t in sd.items():
+        path, leaf = name.rsplit(".", 1)
+        v = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if v.ndim == 4:
+                v = v.transpose(2, 3, 1, 0)
+            elif v.ndim == 2:
+                v = v.T
+            leaf = "kernel"
+        elif leaf != "bias":
+            raise KeyError(f"unexpected parameter leaf in {name!r}")
+        out[f"{prefix}{path}.{leaf}"] = np.ascontiguousarray(v)
     return out
 
 

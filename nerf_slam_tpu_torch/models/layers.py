@@ -47,16 +47,25 @@ def gradient_clip(x: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Conv2d):
     """Conv2d on NHWC tensors with torch-style symmetric padding; the
-    input is cast to the layer's dtype, the output is NHWC."""
+    input, weight and bias are cast to the compute dtype (``compute_dtype``,
+    by default the weight's: training keeps f32 weights and computes in
+    bf16, as flax's ``dtype`` does), the output is NHWC."""
+
+    compute_dtype = None
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = -1):
         pad = kernel // 2 if padding < 0 else padding
         super().__init__(cin, cout, kernel, stride=stride, padding=pad)
 
+    @property
+    def cdtype(self) -> torch.dtype:
+        return self.compute_dtype or self.weight.dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.weight.dtype).permute(0, 3, 1, 2),
-                     self.weight, self.bias, self.stride, self.padding)
+        cd = self.cdtype
+        y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), self.weight.to(cd),
+                     self.bias.to(cd), self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 

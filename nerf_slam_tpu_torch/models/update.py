@@ -5,8 +5,9 @@ over depth-slot indices (``seg < 0`` marks a padded edge, dropped), so the
 operator runs on padded edge sets; the mean sums in f32 in a fixed order
 (``ops/segment.py``), so the same inputs give the same bits.
 ``DroidNet(dtype=...)`` holds its weights in that dtype (bf16 on the card,
-fp32 in the algorithm tests) and computes in it, as the JAX package's
-``DroidNet(dtype=...)`` does.
+fp32 in the algorithm tests) and computes in it; with ``param_dtype`` it
+holds them in that dtype and computes in ``dtype``, as the JAX package's
+``DroidNet(dtype=...)`` does with its f32 parameters (training).
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ from .layers import BasicEncoder, Conv, gradient_clip
 def _conv_slice(conv: Conv, x: torch.Tensor, k: torch.Tensor,
                 with_bias: bool) -> torch.Tensor:
     """``conv`` restricted to the input channels whose kernel slice is
-    ``k`` (O, I', kh, kw); same padding as the full conv."""
-    y = F.conv2d(x.to(k.dtype).permute(0, 3, 1, 2), k,
-                 conv.bias if with_bias else None, 1, conv.padding)
+    ``k`` (O, I', kh, kw); same padding and compute dtype as the full
+    conv."""
+    cd = conv.cdtype
+    y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), k.to(cd),
+                 conv.bias.to(cd) if with_bias else None, 1, conv.padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -53,7 +56,7 @@ class ConvGRU(nn.Module):
                      for c in (self.convz, self.convr, self.convq))
 
     def forward(self, net, *inputs, gates_inp=None):
-        dt = self.convz.weight.dtype
+        dt = self.convz.cdtype
         net = net.to(dt)
         glo = torch.sigmoid(self.w(net)) * net
         glo = glo.mean(dim=(-3, -2), keepdim=True)        # (E, 1, 1, 128)
@@ -162,16 +165,22 @@ class UpdateModule(nn.Module):
 class DroidNet(nn.Module):
     """Feature encoder + context encoder + update operator."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.feature_net = BasicEncoder(128, "instance")
         self.context_net = BasicEncoder(256, "none")
         self.update_net = UpdateModule()
-        self.to(dtype)
+        self.to(param_dtype or dtype)
+        if param_dtype is not None and param_dtype != dtype:
+            for m in self.modules():
+                if isinstance(m, Conv):
+                    m.compute_dtype = dtype
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.feature_net.conv1.weight.dtype
+        """The compute dtype."""
+        return self.feature_net.conv1.cdtype
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(..., H, W, 3) normalized images -> (..., H/8, W/8, 128)."""

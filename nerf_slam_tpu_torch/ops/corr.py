@@ -11,7 +11,8 @@ Layout (the pretrained corr-encoder conv depends on it):
 The lookup kernels of the tracking hot loop live in ``corr_lookup``;
 :func:`lookup_level` is the plain reference they are tested against.
 :class:`CorrPyramidPallas` is the pyramid that looks up through those
-kernels, :class:`CorrPyramid` the one that uses the reference, and
+kernels, :class:`CorrPyramid` the one that uses the reference (or, with
+``onehot=True``, :func:`lookup_level_onehot`, the training lookup), and
 :func:`alt_corr_level` correlates on the fly without a volume (global BA).
 """
 from __future__ import annotations
@@ -107,6 +108,36 @@ def lookup_level(volume: torch.Tensor, coords: torch.Tensor,
     return out.permute(0, 4, 3, 1, 2).reshape(E, rd * rd, H1, W1)
 
 
+def lookup_level_onehot(volume: torch.Tensor, coords: torch.Tensor,
+                        radius: int = 3) -> torch.Tensor:
+    """:func:`lookup_level` as two one-hot matrix products, the JAX
+    package's training lookup: the (2r+2) y taps and x taps of each pixel
+    select rows and columns of its (H2, W2) slice, so the backward into
+    the volume is a batched product too, summed in a fixed order (the
+    gather's backward scatters with atomics).  The products run in f32:
+    each output sums one volume value and zeros, so the forward equals the
+    gather's exactly, and the volume's gradient is summed in f32 and
+    rounded once to its dtype, as JAX's f32-accumulated contraction does.
+    """
+    E, H1, W1, H2, W2 = volume.shape
+    rd = 2 * radius + 1
+    n_sup = rd + 1
+    x0, y0 = coords[..., 0], coords[..., 1]
+    fx, fy = torch.floor(x0), torch.floor(y0)
+    dx = (x0 - fx)[..., None]
+    dy = (y0 - fy)[..., None]
+    taps = torch.arange(n_sup, device=volume.device)
+    yi = (fy.long() - radius)[..., None] + taps          # (E,H1,W1,8)
+    xi = (fx.long() - radius)[..., None] + taps
+    # out-of-range taps select nothing: the zero padding of the reference
+    oy = (torch.arange(H2, device=volume.device) == yi[..., None]).float()
+    ox = (torch.arange(W2, device=volume.device) == xi[..., None]).float()
+    t1 = oy @ volume.float()                             # (E,H1,W1,8,W2)
+    S = t1 @ ox.transpose(-1, -2)                        # [y_tap, x_tap]
+    out = _window(S, dx, dy, rd)                         # (E,H1,W1,b,a)
+    return out.permute(0, 4, 3, 1, 2).reshape(E, rd * rd, H1, W1)
+
+
 def _window(S: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
             rd: int) -> torch.Tensor:
     """Bilinear recombination of a support S[..., y_tap, x_tap] into the
@@ -156,11 +187,14 @@ def alt_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 
 class CorrPyramid:
-    """4-level correlation pyramid with the reference lookup."""
+    """4-level correlation pyramid with the reference lookup, or with
+    ``onehot=True`` the one-hot lookup (training: its backward has no
+    atomics)."""
 
-    def __init__(self, levels, radius: int = 3):
+    def __init__(self, levels, radius: int = 3, onehot: bool = False):
         self.levels = list(levels)
         self.radius = radius
+        self.onehot = onehot
 
     @staticmethod
     def build(fmap1, fmap2, num_levels: int = 4, radius: int = 3):
@@ -169,16 +203,22 @@ class CorrPyramid:
 
     def __call__(self, coords: torch.Tensor) -> torch.Tensor:
         """coords: (E, H1, W1, 2) level-0 [x, y] -> (E, L*(2r+1)^2, H1, W1)."""
+        if self.onehot:
+            return torch.cat([lookup_level_onehot(v, coords / (2 ** lvl),
+                                                  self.radius)
+                              for lvl, v in enumerate(self.levels)], dim=1)
         return torch.cat([lookup_level(v.float(), coords / (2 ** lvl),
                                        self.radius)
                           for lvl, v in enumerate(self.levels)], dim=1)
 
     def cat(self, other: "CorrPyramid") -> "CorrPyramid":
         return CorrPyramid([torch.cat([a, b], dim=0) for a, b in
-                            zip(self.levels, other.levels)], self.radius)
+                            zip(self.levels, other.levels)], self.radius,
+                           self.onehot)
 
     def __getitem__(self, index) -> "CorrPyramid":
-        return CorrPyramid([lv[index] for lv in self.levels], self.radius)
+        return CorrPyramid([lv[index] for lv in self.levels], self.radius,
+                           self.onehot)
 
 
 # the grouped TPU kernel takes 16-pixel groups of sublane-aligned rows;

@@ -12,6 +12,7 @@ import time
 from typing import Any, Dict, Optional
 
 from ..fusion.nerf_fusion import MASK_TYPES
+from ..slam.meta_slam import SLAM
 from .module import PipelineModule
 
 DEVICE_LOCK = threading.RLock()
@@ -45,11 +46,13 @@ class DataModule(PipelineModule):
 
 
 class SlamModule(PipelineModule):
-    """Tracking stage wrapping a RaftVisualFrontend."""
+    """Tracking stage wrapping a RaftVisualFrontend or a SLAM object
+    (``VioSLAM``), whose call returns (backend state, tracker output)."""
 
     def __init__(self, frontend, parallel_run: bool = True):
         super().__init__("slam", parallel_run)
         self.frontend = frontend
+        self._is_slam = isinstance(frontend, SLAM)
 
     def spin_once(self, packet):
         if isinstance(packet, dict) and "data" in packet:
@@ -57,7 +60,10 @@ class SlamModule(PipelineModule):
         if packet is None:
             return None
         with DEVICE_LOCK:
-            out = self.frontend(packet["k"], packet)
+            if self._is_slam:
+                _, out = self.frontend(packet)
+            else:
+                out = self.frontend(packet["k"], packet)
         if self.frontend.stop_condition():
             self.shutdown_module()
         return out

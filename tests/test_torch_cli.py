@@ -119,11 +119,9 @@ def test_cli_stereo_and_rgbd_run(capsys, monkeypatch, flag):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--vio"], "VIO"),
     (["--gui"], "gui/"), (["--viewer_port", "8000"], "gui/"),
     (["--device_split"], "parallel/"),
-    (["--edge_shards", "2"], "parallel/"),
-    (["--weights", "droid.pth"], "Training")])
+    (["--edge_shards", "2"], "parallel/")])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         slam_demo.run(slam_demo.parse_args(["--device", "cpu"] + flags))

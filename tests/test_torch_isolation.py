@@ -24,6 +24,7 @@ for name in names + ['chip_smoke']:
     importlib.import_module(name)
 after = sorted(m for m in sys.modules if m.split('.')[0] in {names!r})
 print(len(names), before, after)
+print(" ".join(names))
 """
 
 
@@ -33,10 +34,23 @@ def _probe(names):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
 
 
+# modules the walk must reach (a package without __init__.py is skipped)
+REACHED = ("nerf_slam_tpu_torch.slam.imu",
+           "nerf_slam_tpu_torch.slam.meta_slam",
+           "nerf_slam_tpu_torch.solver.factor_graph",
+           "nerf_slam_tpu_torch.solver.nonlinear",
+           "nerf_slam_tpu_torch.solver.ba", "nerf_slam_tpu_torch.solver.schur",
+           "nerf_slam_tpu_torch.models.training",
+           "nerf_slam_tpu_torch.models.weights",
+           "nerf_slam_tpu_torch.cli.train_droid_synthetic")
+
+
 def test_port_imports_no_jax():
     out = _probe(FORBIDDEN)
     assert out.returncode == 0, out.stderr
-    n, before, after = out.stdout.strip().split(" ", 2)
+    counts, walked = out.stdout.strip().split("\n")
+    assert set(REACHED) <= set(walked.split()), walked
+    n, before, after = counts.split(" ", 2)
     assert int(n) >= 37, out.stdout          # every module was imported
     assert before == "[]", before            # the interpreter started clean
     assert after == "[]", after
@@ -45,7 +59,7 @@ def test_port_imports_no_jax():
 def test_port_imports_no_optional_reader():
     out = _probe(OPTIONAL)
     assert out.returncode == 0, out.stderr
-    n, before, after = out.stdout.strip().split(" ", 2)
+    n, before, after = out.stdout.strip().split("\n")[0].split(" ", 2)
     assert int(n) >= 49, out.stdout          # the readers' modules too
     assert before == "[]", before
     assert after == "[]", after
