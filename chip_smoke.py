@@ -98,19 +98,40 @@ through the CLI's ``--weights`` on the production cell (ATE-RMSE at most
 0.25 m), and a ``droid.pth``-named state dict of the weights through
 ``--weights``.
 
+Last, the parallel and the GUI paths: (r) the production tracker with
+``edge_shards=2`` on the one card, twice, against the unsharded tracker
+alone: the same keyframes, ATE-RMSE at most 0.25 m (with its gap to the
+unsharded run's and the largest pose gap), the two runs equal to the
+bit, kernel #1 launched twice as often (once a shard an iteration) and
+#2 as often; the sharded DBA step and the data-parallel NGP step, two
+shards each at the production widths, on the card and on the CPU from
+the same inputs, within 1e-4; the CLI with ``--edge_shards 2 --fusion
+nerf --eval`` (ATE-RMSE at most 0.25 m) and with ``--device_split
+--parallel_run`` (one card: the single-device line, the mapping
+parameters on ``cuda:0``; two: on ``cuda:1``).  (s) the CLI with ``--gui
+--viewer_port <free port> --fusion nerf`` on the production frames in a
+temporary working directory: ``/state.json`` holds every keyframe,
+``/kf.jpg``, ``/depth.jpg`` and ``/sigma.jpg`` are JPEGs, ``/cloud.ply``
+a PLY, a ``sigma_thresh`` command sent over HTTP reaches the GUI, the
+exports exist and the ``mesh`` end command wrote a mesh with vertices;
+keyframes/s with and without the GUI, and the GUI's export and publish
+times.
+
 Output, in order: the card's name and power limit, the kernel build time,
 one line per kernel check, the pipeline and path lines (a)-(o) and
-Replica, (p) and (q), each phase's end time, the launches of #1 and #2
-on (j), (k), (l), (o) and (p), the
-``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero without the ``ok`` line.  Needs a CUDA device;
-imports no JAX.  ``--only p,q`` runs (p) and (q) alone (a partial run,
-without the kernel line or the ``ok`` line).
+Replica, (p), (q), (r) and (s), each phase's end time, the launches of
+#1 and #2 on (j), (k), (l), (o), (p), (r) and (s), the ``kernels`` JSON
+line, and last ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero without the ``ok`` line.  Needs a CUDA device; imports no JAX.
+``--only p,q,r,s`` (any of the four) runs those phases alone (a partial
+run, without the kernel line or the ``ok`` line).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -1793,12 +1814,336 @@ def training_phase(tmp: str) -> None:
         f"{launches['corr_lookup_pyramid']}")
 
 
+# (r): the sharded tracker's shard count, the rays of the data-parallel
+# step (NerfFusion's batch), and the card-vs-CPU limit of the two steps
+SHARDS, DP_RAYS, PAR_TOL = 2, 4096, 1e-4
+
+
+def dba_problem(gen):
+    """One Gauss-Newton problem at the production cell's widths, on the
+    CPU: BUFFER keyframes of (H/8, W/8) inverse depths, 2 * E_ACTIVE edge
+    slots filled with edges between keyframes 1-3 apart, flow targets
+    from the true poses, the poses perturbed (keyframe 0 fixed), the
+    depth damping 1e-2, about what the production tracker applies (the
+    GRU's 0.01 softplus times the weights' scale 1.0, plus 1e-4).  (With
+    parallel.tracking.dryrun's 1e-4 the step's f32 rounding alone reaches
+    4.5e-5 against an f64 solve on the CPU, and two f32 machines differ
+    by twice that.)"""
+    from nerf_slam_tpu_torch.geometry import camera, se3
+    from nerf_slam_tpu_torch.solver import dba
+
+    n, h, w, E = BUFFER, H // 8, W // 8, 2 * E_ACTIVE
+    pairs = [(i, i + d) for d in (1, 2, 3) for i in range(n - d)]
+    pairs += [(j, i) for i, j in pairs]
+    ii, jj = (np.array(x[:E]) for x in zip(*pairs))
+    poses_gt = se3.exp(torch.cat([0.3 * torch.randn((n, 3), generator=gen),
+                                  0.05 * torch.randn((n, 3), generator=gen)],
+                                 -1))
+    disps = 0.5 + 0.5 * torch.rand((n, h, w), generator=gen)
+    intr = torch.tensor([[w * 0.9, w * 0.9, w / 2, h / 2]]).repeat(n, 1)
+    target, valid, _ = camera.projective_transform(
+        poses_gt, disps, intr, torch.as_tensor(ii), torch.as_tensor(jj))
+    noise = 0.01 * torch.randn((n, 6), generator=gen)
+    noise[0] = 0.0
+    targets, weights = torch.zeros((2, E, h, w, 2))
+    targets[:len(ii)] = target
+    weights[:len(ii)] = valid
+    args = (se3.retr(poses_gt, noise), disps, intr, targets, weights,
+            1e-2 * torch.ones((n, h, w)), torch.zeros((n, h, w)))
+    return args, dba.plan(ii, jj, 0, n, E=E, P=n, K=n, device="cpu")
+
+
+def plan_on(plan, device):
+    """A DBA plan's tensors on ``device``."""
+    return type(plan)(*[v if v is None else v.to(device) for v in plan])
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Host-clock ms a call of ``fn`` takes to its end on the card (launch
+    cost included), after one warm-up."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def parallel_steps(dev) -> None:
+    """(r) The sharded DBA step and the data-parallel NGP step, SHARDS
+    shards each, at the production widths, on the card and on the CPU
+    from the same inputs: the DBA's poses and depths within PAR_TOL; the
+    NGP loss within PAR_TOL relative and the shards' mean gradient within
+    PAR_TOL of each tensor's largest, the field computing in f32 on both
+    (the Adam step that follows is the library's)."""
+    from nerf_slam_tpu_torch.fusion.ngp import (NGPConfig, PEField,
+                                                draw_ray_samples)
+    from nerf_slam_tpu_torch.parallel import mapping, tracking
+    from nerf_slam_tpu_torch.solver import dba
+
+    gen = torch.Generator().manual_seed(SEED)
+    args, plan = dba_problem(gen)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        step = tracking.make_sharded_dba_step([d] * SHARDS)
+        out.append([t.cpu() for t in step(*[a.to(d) for a in args],
+                                          plan_on(plan, d))])
+    gp, ga = plan_on(plan, dev), [a.to(dev) for a in args]
+    sharded_ms = wall_ms(lambda: tracking.make_sharded_dba_step(
+        [dev] * SHARDS)(*ga, gp))
+    single_ms = wall_ms(lambda: dba.dba_iterations(*ga, gp, iters=1))
+    err = [float((a - b).abs().max()) for a, b in zip(*out)]
+    log(f"(r) sharded DBA step, {SHARDS} shards of {2 * E_ACTIVE} edges, "
+        f"{BUFFER} keyframes of {H // 8}x{W // 8}: card vs CPU max |d pose| "
+        f"{err[0]:.3e}, |d disp| {err[1]:.3e}; {sharded_ms:.2f} ms a step on "
+        f"the card, host clock (unsharded {single_ms:.2f} ms)")
+    if not max(err) <= PAR_TOL:
+        raise RuntimeError(f"(r) sharded DBA step, card vs CPU: {err}")
+
+    cfg = NGPConfig()
+    rays = DP_RAYS // SHARDS
+    batch = {"origins": 0.5 + 0.1 * torch.randn((DP_RAYS, 3), generator=gen),
+             "dirs": 0.3 * torch.randn((DP_RAYS, 3), generator=gen)
+             + torch.tensor([0.0, 0.0, 1.0]),
+             "rgb": torch.rand((DP_RAYS, 3), generator=gen),
+             "depth": torch.where(torch.rand(DP_RAYS, generator=gen) > 0.3,
+                                  0.2 + 0.7 * torch.rand(DP_RAYS,
+                                                         generator=gen),
+                                  torch.zeros(DP_RAYS)),
+             "depth_w": torch.ones(DP_RAYS)}
+    draws = [draw_ray_samples(rays, cfg, mapping.shard_generator(SEED, s,
+                                                                 "cpu"),
+                              "cpu") for s in range(SHARDS)]
+    res = []
+    for d in (dev, torch.device("cpu")):
+        field = PEField(cfg, compute_dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(SEED)).to(d)
+        step = mapping.make_dp_train_step(
+            [d] * SHARDS, field, cfg,
+            torch.optim.Adam(field.parameters(), lr=cfg.pe_lr))
+        sync()
+        t0 = time.perf_counter()
+        loss = float(step(batch, SEED, draws))
+        sync()
+        res.append((loss, [p.grad.cpu() for p in field.parameters()],
+                    [p.detach().cpu() for p in field.parameters()],
+                    1e3 * (time.perf_counter() - t0)))
+    (lg, gg, pg, ms_g), (lc, gc, pc, ms_c) = res
+    g_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(gg, gc))
+    p_err = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
+    log(f"(r) data-parallel step, {SHARDS} shards of {rays} rays, PE field "
+        f"in f32: loss card {lg:.7f} / CPU {lc:.7f}, mean gradient within "
+        f"{g_err:.3e} of each tensor's largest, parameters after the Adam "
+        f"step within {p_err:.3e}; {ms_g:.1f} ms on the card, {ms_c:.1f} "
+        f"ms on the CPU")
+    if not (abs(lg - lc) <= PAR_TOL * abs(lc) and g_err <= PAR_TOL):
+        raise RuntimeError(f"(r) data-parallel step, card vs CPU: loss "
+                           f"{lg} / {lc}, gradients {g_err}")
+
+
+def parallel_phase(dev) -> dict:
+    """(r) The production tracker alone with edge_shards=SHARDS on one
+    card, in turns with the unsharded tracker (unsharded, sharded,
+    sharded, unsharded; fresh state each): the same keyframes, ATE-RMSE
+    at most ATE_LIMIT_M, each configuration's two runs equal to the bit,
+    kernel #1 launched SHARDS times as often and #2 as often; then the
+    two sharded steps (:func:`parallel_steps`) and the CLI
+    (:func:`parallel_cli`)."""
+    frames = synthetic_frames(W)
+    runs = {1: [], SHARDS: []}
+    for shards in (1, SHARDS, SHARDS, 1):
+        fe, sink, wall, launches = track_only(
+            dev, frames, W, {"edge_shards": shards} if shards > 1 else {})
+        runs[shards].append((tracker_result(fe), trajectory_error(sink),
+                             wall, launches))
+        del fe, sink
+        torch.cuda.empty_cache()
+    (ref, ate0, _, launches0), (got, ate, _, launches) = \
+        runs[1][0], runs[SHARDS][0]
+    n0, n = ref[0].numel(), got[0].numel()
+    gap = (float((got[1] - ref[1]).abs().max()) if n == n0
+           else math.nan)
+    repeat = {k: same_bits(v[0][0], v[1][0]) for k, v in runs.items()}
+    walls = {k: [f"{r[2]:.2f}" for r in v] for k, v in runs.items()}
+    log(f"(r) tracker edge_shards={SHARDS} on {torch.cuda.device_count()} "
+        f"card(s), {H}x{W}: {n} keyframes (unsharded {n0}), ATE-RMSE "
+        f"{ate:.6f} m (unsharded {ate0:.6f} m, gap {ate - ate0:+.6f} m), "
+        f"largest pose gap {gap:.3e}; wall s in turns: unsharded "
+        f"{walls[1][0]}, sharded {' and '.join(walls[SHARDS])}, unsharded "
+        f"{walls[1][1]}; each configuration's two runs bit-identical: "
+        f"{repeat}; launches {launches} (unsharded {launches0})")
+    if n != n0:
+        raise RuntimeError(f"(r) {n} keyframes sharded, {n0} unsharded")
+    if not ate <= ATE_LIMIT_M:
+        raise RuntimeError(f"(r) ATE-RMSE {ate} m > {ATE_LIMIT_M}")
+    if not all(repeat.values()):
+        raise RuntimeError(f"(r) a tracker is not reproducible: {repeat}")
+    k1, k2 = "corr_lookup_grouped4", "corr_lookup_pyramid"
+    if not (launches[k1] == SHARDS * launches0[k1] > 0
+            and launches[k2] == launches0[k2] > 0):
+        raise RuntimeError(f"(r) launches {launches}, unsharded "
+                           f"{launches0}")
+    parallel_steps(dev)
+    parallel_cli(dev)
+    return {"launches": launches}
+
+
+def parallel_cli(dev) -> None:
+    """(r) The CLI with ``--edge_shards SHARDS --fusion nerf --eval``
+    (ATE-RMSE at most ATE_LIMIT_M), and with ``--device_split
+    --parallel_run``: mapping on the second card where there is one, else
+    JAX's single-device line and mapping beside tracking."""
+    from nerf_slam_tpu_torch.cli import slam_demo
+
+    base = ["--height", str(H), "--width", str(W), "--n_frames",
+            str(N_FRAMES), "--fusion", "nerf"]
+    res, cli_launches, fe = cli_run(base + ["--eval", "--edge_shards",
+                                            str(SHARDS)])
+    check_tracking("r", fe, cli_launches)
+    cli_ate = res.get("ate_rmse_m", math.nan)
+    log(f"(r) CLI --edge_shards {SHARDS} --fusion nerf --eval: "
+        f"{res['n_keyframes']} keyframes, {res['kf_per_s']:.4f} keyframes/s"
+        f", ATE-RMSE {cli_ate:.6f} m, PSNR {res.get('fusion_psnr')}, "
+        f"launches {cli_launches}")
+    if not cli_ate <= ATE_LIMIT_M:
+        raise RuntimeError(f"(r) CLI --edge_shards ATE-RMSE {cli_ate} m")
+    del fe
+    torch.cuda.empty_cache()
+
+    built, lines = [], io.StringIO()
+    build = slam_demo.build_fusion
+    slam_demo.build_fusion = lambda a: built.append(build(a)) or built[-1]
+    try:
+        with contextlib.redirect_stdout(lines):
+            res, _, _ = cli_run(base + ["--device_split", "--parallel_run"])
+    finally:
+        slam_demo.build_fusion = build
+    fusion = built[0][0]
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    want = "cuda:1" if n_dev >= 2 else str(torch.empty(0, device=dev).device)
+    where = {str(p.device) for p in fusion.field.parameters()}
+    fell_back = "falling back to shared-device scheduling" in \
+        lines.getvalue()
+    log(f"(r) CLI --device_split --parallel_run on {n_dev} device(s) of "
+        f"the type: mapping parameters on "
+        f"{sorted(where)}, {fusion.iteration} NGP iterations, "
+        f"{res['kf_per_s']:.4f} keyframes/s, single-device line printed: "
+        f"{fell_back}")
+    if where != {want} or fell_back != (n_dev < 2) or fusion.iteration <= 0:
+        raise RuntimeError(f"(r) --device_split: mapping on {where}, "
+                           f"expected {want}; line printed {fell_back}")
+
+
+def _http_get(port: int, path: str) -> bytes:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.read()
+
+
+def gui_phase(tmp: str) -> dict:
+    """(s) The CLI with ``--gui --viewer_port <free port> --fusion nerf`` on
+    the production frames, in a temporary working directory (the mesh end
+    command writes there): the viewer's state, JPEGs and cloud, a command
+    sent over HTTP reaching the GUI, the exports under ``--viz_out``, the
+    mesh; keyframes/s with and without the GUI, and the GUI's export and
+    publish times.  Fails where neither OpenCV nor Pillow imports (the
+    viewer's constructor says so)."""
+    import socket
+
+    from nerf_slam_tpu_torch import gui
+    from nerf_slam_tpu_torch.utils.evaluation import load_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    viz = os.path.join(tmp, "viz")
+    viewers, times = [], {"export": [], "publish": []}
+    viewer_cls, export, publish = (gui.LiveViewer, gui.HeadlessGui.export,
+                                   gui.LiveViewer._publish)
+
+    def timer(name, fn):
+        def run(self, *a):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(self, *a)
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    gui.LiveViewer = lambda *a, **k: viewers.append(
+        viewer_cls(*a, **k)) or viewers[-1]
+    gui.HeadlessGui.export = timer("export", export)
+    viewer_cls._publish = timer("publish", publish)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    base = ["--height", str(H), "--width", str(W), "--n_frames",
+            str(N_FRAMES), "--fusion", "nerf"]
+    try:
+        res, launches, fe = cli_run(base + ["--gui", "--viewer_port",
+                                            str(port), "--viz_out", viz])
+        v = viewers[0]
+        n_kf = res["n_keyframes"]
+        state = json.loads(_http_get(port, "/state.json"))
+        kfs = [t["kf"] for t in state["trajectory"]]
+        jpgs = {name: _http_get(port, f"/{name}.jpg")
+                for name in ("kf", "depth", "sigma")}
+        cloud = _http_get(port, "/cloud.ply")
+        _http_get(port, "/cmd?name=sigma_thresh&value=3.5")
+        cmds = v.pop_commands()
+        v.close()
+        files = sorted(os.listdir(viz))
+        mesh_path = os.path.join(tmp, "fusion_mesh.obj")
+        verts = (load_mesh(mesh_path)[0] if os.path.exists(mesh_path)
+                 else np.zeros((0, 3)))
+        res0, _, _ = cli_run(base)
+    finally:
+        os.chdir(cwd)
+        gui.LiveViewer = viewer_cls
+        gui.HeadlessGui.export = export
+        viewer_cls._publish = publish
+    check_tracking("s", fe, launches)
+    log(f"(s) CLI --gui --viewer_port {port} --fusion nerf {H}x{W}: "
+        f"{n_kf} keyframes, {res['kf_per_s']:.4f} keyframes/s with the GUI, "
+        f"{res0['kf_per_s']:.4f} without (gui stage {res['gui_mean_ms']:.1f}"
+        f" ms a spin); {len(times['export'])} exports, "
+        f"{1e3 * float(np.mean(times['export'])):.1f} ms each (first "
+        f"{1e3 * times['export'][0]:.1f}, last {1e3 * times['export'][-1]:.1f}"
+        f"); {len(times['publish'])} viewer publishes, "
+        f"{1e3 * float(np.median(times['publish'])):.1f} ms median, "
+        f"{1e3 * max(times['publish']):.1f} ms the largest; /state.json "
+        f"{len(kfs)} trajectory entries over keyframes {sorted(set(kfs))[:3]}"
+        f"...{sorted(set(kfs))[-1:]}; JPEG bytes "
+        f"{ {k: len(b) for k, b in jpgs.items()} }, cloud.ply "
+        f"{len(cloud)} bytes; commands {cmds}; exports {len(files)} files; "
+        f"mesh {verts.shape[0]} vertices")
+    if set(kfs[-n_kf:]) != set(range(n_kf)) or len(set(kfs)) != n_kf:
+        raise RuntimeError(f"(s) /state.json keyframes {sorted(set(kfs))}, "
+                           f"{n_kf} keyframes tracked")
+    if not all(b[:2] == b"\xff\xd8" for b in jpgs.values()):
+        raise RuntimeError("(s) the viewer's images are not JPEGs")
+    if not cloud.startswith(b"ply"):
+        raise RuntimeError("(s) /cloud.ply is no PLY")
+    if not ({"cmd": "sigma_thresh", "value": 3.5} in cmds
+            and v.gui.sigma_thresh == 3.5):
+        raise RuntimeError(f"(s) the HTTP command did not reach the GUI: "
+                           f"{cmds}")
+    for prefix in ("cloud_", "depth_", "sigma_", "trajectory.json"):
+        if not any(f.startswith(prefix) for f in files):
+            raise RuntimeError(f"(s) no {prefix} export in {files}")
+    if verts.shape[0] == 0:
+        raise RuntimeError("(s) the mesh end command wrote no mesh")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                  "GPU")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases among p,q to run alone "
-                         "(a partial run: no kernels or ok line)")
+                    help="comma-separated phases among p,q,r,s to run "
+                         "alone (a partial run: no kernels or ok line)")
     only = [t for t in ap.parse_args(argv).only.split(",") if t]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1838,6 +2183,10 @@ def main(argv=None) -> int:
                 vio_phase()
             if "q" in only:
                 training_phase(tmp)
+            if "r" in only:
+                parallel_phase(dev)
+            if "s" in only:
+                gui_phase(tmp)
         log(f"chip_smoke: phases {only} passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1880,6 +2229,10 @@ def main(argv=None) -> int:
         mark("(p)")
         training_phase(tmp)
         mark("(q)")
+        paths["r"] = parallel_phase(dev)
+        mark("(r)")
+        paths["s"] = gui_phase(tmp)
+        mark("(s)")
     log("launches of kernels #1 / #2 on the new paths: " + ", ".join(
         f"({tag}) {p['launches']['corr_lookup_grouped4']} / "
         f"{p['launches']['corr_lookup_pyramid']}" for tag, p in paths.items()))

@@ -22,13 +22,21 @@ one JSON line: wall time, keyframes and keyframes/s, each stage's mean
 spin time, ATE-RMSE against ground truth and, under ``--eval``, the map's
 evaluation row.
 
+``--gui`` adds the headless GUI stage (``gui.HeadlessGui``: point
+clouds, the trajectory and depth / sigma heatmaps under ``--viz_out``;
+at the end it sends ``mesh`` and ``eval`` back to the fusion stage),
+``--viewer_port`` serves it live over HTTP (``gui.LiveViewer``).
+``--edge_shards n`` splits the tracker's edge slots into n shards
+(``FrontendConfig.edge_shards``; ``e_active`` and ``e_inactive`` must
+divide by n), placed round robin over the visible devices of
+``--device``'s type.  ``--device_split`` puts mapping on the second such
+device where there is one (``utils.runtime.fusion_device``), else says so
+and keeps it beside tracking.
+
 It runs on the GPU; ``--device cpu`` (the one flag the JAX CLI lacks)
 runs it on the CPU, for the tests.  ``--weights`` takes the flat-key
 ``.npz`` (with its damping sidecar) or a DROID ``droid.pth``
-(``models/weights.py``).  Features the port does not have yet raise,
-naming by its title the item of ROADMAP.md's module queue they wait for:
-``--edge_shards`` > 1 and ``--device_split`` ("parallel/"), ``--gui`` and
-``--viewer_port`` ("gui/").
+(``models/weights.py``).
 """
 from __future__ import annotations
 
@@ -73,8 +81,10 @@ def parse_args(argv=None):
     p.add_argument("--eval_views", type=int, default=8)
     p.add_argument("--parallel_run", action="store_true")
     p.add_argument("--eval", action="store_true")
-    p.add_argument("--gui", action="store_true")
-    p.add_argument("--viewer_port", type=int, default=0)
+    p.add_argument("--gui", action="store_true",
+                   help="headless GUI stage: exports under --viz_out")
+    p.add_argument("--viewer_port", type=int, default=0,
+                   help="with --gui: serve a live HTTP viewer on this port")
     p.add_argument("--device_split", action="store_true",
                    help="mapping on a second device")
     p.add_argument("--viz_out", type=str, default="viz_out",
@@ -86,29 +96,13 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--global_ba", action="store_true",
                    help="run global bundle adjustment at termination")
-    p.add_argument("--edge_shards", type=int, default=1)
+    p.add_argument("--edge_shards", type=int, default=1,
+                   help="shard the tracker's update over this many edge "
+                        "shards (e_active and e_inactive must divide it)")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu (for the tests)")
     return p.parse_args(argv)
-
-
-# flags whose features are not ported: (attribute, refused when, the title
-# of the ROADMAP.md item that ports them)
-_REFUSED = (
-    ("gui", bool, "gui/"),
-    ("viewer_port", bool, "gui/"),
-    ("device_split", bool, "parallel/"),
-    ("edge_shards", lambda n: n > 1, "parallel/"),
-)
-
-
-def check_args(args) -> None:
-    """Raise for every feature the port does not have yet."""
-    for name, refused, item in _REFUSED:
-        if refused(getattr(args, name)):
-            raise NotImplementedError(
-                f"--{name} is not ported yet: ROADMAP.md, module {item}")
 
 
 def build_dataset(args):
@@ -155,7 +149,8 @@ def build_frontend(args, image_size, stereo_rel=None):
     cfg = FrontendConfig(buffer=args.buffer, p_window=min(args.buffer, 32),
                          k_depth=min(args.buffer + 8, 40),
                          global_ba=args.global_ba, stereo=args.stereo,
-                         rgbd=args.rgbd, **damping_kw)
+                         rgbd=args.rgbd, edge_shards=args.edge_shards,
+                         **damping_kw)
     return RaftVisualFrontend(net, cfg, image_size, device=dev)
 
 
@@ -194,7 +189,9 @@ def build_fusion(args):
             mask_type=args.mask_type,
             eval_every=args.eval_every if args.eval else 0,
             eval_views=args.eval_views)
-        return NerfFusion(cfg, seed=args.seed, device=args.device), "nerf"
+        from ..utils.runtime import fusion_device
+        dev = fusion_device(args.device_split, args.device) or args.device
+        return NerfFusion(cfg, seed=args.seed, device=dev), "nerf"
     from ..fusion import TsdfFusion, TsdfFusionConfig
     mask = "weighted" if args.fusion == "sigma" else "uniform"
     return (TsdfFusion(TsdfFusionConfig(depth_mask_type=mask),
@@ -202,11 +199,11 @@ def build_fusion(args):
 
 
 def run(args) -> dict:
-    from ..pipeline import (DataModule, EvalSink, FusionModule, SlamModule,
-                            connect, run_parallel, run_sequential)
+    from ..pipeline import (DataModule, EvalSink, FusionModule, GuiModule,
+                            SlamModule, connect, run_parallel,
+                            run_sequential)
     from ..utils.evaluation import ate_rmse, trajectory_from_packet
 
-    check_args(args)
     dataset = build_dataset(args)
     probe = dataset[0]
     image_size = probe["images"].shape[:2]
@@ -225,10 +222,23 @@ def run(args) -> dict:
     modules = [data_m, slam_m, sink]
     connect(data_m, slam_m, "data")
     connect(slam_m, sink, "slam")
+    fusion_m = None
     if fusion is not None:
         fusion_m = FusionModule(fusion, mode=fusion_mode)
         connect(slam_m, fusion_m, "slam")
         modules.insert(2, fusion_m)
+    if args.gui:
+        from ..gui import HeadlessGui, LiveViewer
+        gui = HeadlessGui(out_dir=args.viz_out)
+        if args.viewer_port:
+            gui = LiveViewer(gui, port=args.viewer_port)
+            print(f"live viewer at http://localhost:{gui.port}/", flush=True)
+        gui_m = GuiModule(gui)
+        connect(slam_m, gui_m, "slam")
+        if fusion_m is not None:
+            # the GUI -> fusion command back-channel
+            connect(gui_m, fusion_m, "gui")
+        modules.append(gui_m)
 
     t0 = time.time()
     if args.profile:

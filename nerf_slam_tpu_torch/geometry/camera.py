@@ -190,6 +190,14 @@ def frame_distance_bidirectional(poses, disps, intrinsics, ii, jj,
                   + frame_distance(poses, disps, intrinsics, jj, ii, beta))
 
 
+def iproj_points(poses, disps, intrinsics) -> torch.Tensor:
+    """Back-project inverse depths to world-frame 3D points (DROID's
+    iproj kernel): poses (N, 7) cam_T_world; returns (N, H, W, 3)."""
+    X = iproj(disps, intrinsics)                   # [x, y, 1, d] camera
+    pts_cam = X[..., :3] / torch.clamp(X[..., 3:4], min=1e-8)
+    return se3.act(se3.inv(poses)[..., None, None, :], pts_cam)
+
+
 def depth_filter(poses, disps, intrinsics, ix, thresh):
     """Multi-view depth-consistency count (DROID's depth_filter_kernel).
 

@@ -94,7 +94,14 @@ class ConvGRU(nn.Module):
 
 
 class GraphAgg(nn.Module):
-    """Pool hidden states per source view -> damping eta + upsample mask."""
+    """Pool hidden states per source view -> damping eta + upsample mask.
+
+    ``net`` and ``seg`` are tensors, or lists of them, one an edge shard:
+    the per-view mean then runs over the edges of every shard, their f32
+    segment sums and counts reduced in shard order before the division,
+    as the JAX pool psums both over the mesh axis (a pool that divided
+    per shard would weigh each shard's edges by its own count).  Shards
+    on another device than this module's are copied to it."""
 
     def __init__(self):
         super().__init__()
@@ -104,7 +111,12 @@ class GraphAgg(nn.Module):
         self.upmask_0 = Conv(128, 8 * 8 * 9, 1)
 
     def _pooled(self, net, seg, n_seg: int):
-        x = F.relu(self.conv1(net))
+        if isinstance(net, torch.Tensor):
+            x = F.relu(self.conv1(net))
+        else:
+            dev = self.conv1.weight.device
+            x = [F.relu(self.conv1(n.to(dev))) for n in net]
+            seg = [s.to(dev) for s in seg]
         return F.relu(self.conv2(segment_mean(x, seg, n_seg)))
 
     def eta(self, net, seg, n_seg: int) -> torch.Tensor:
@@ -202,4 +214,10 @@ class DroidNet(nn.Module):
         return self.update_net.gru.precompute_inp(inp)
 
     def aggregate(self, net, seg, n_seg):
+        """(eta, upmask) pooled per view; ``net``/``seg`` as
+        :class:`GraphAgg` takes them (lists: one an edge shard)."""
         return self.update_net.agg(net, seg, n_seg)
+
+    def eta(self, net, seg, n_seg):
+        """The damping eta alone, as :meth:`aggregate` pools it."""
+        return self.update_net.agg.eta(net, seg, n_seg)

@@ -18,6 +18,7 @@ kernels, :class:`CorrPyramid` the one that uses the reference (or, with
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import corr_lookup
 
@@ -136,6 +137,94 @@ def lookup_level_onehot(volume: torch.Tensor, coords: torch.Tensor,
     S = t1 @ ox.transpose(-1, -2)                        # [y_tap, x_tap]
     out = _window(S, dx, dy, rd)                         # (E,H1,W1,b,a)
     return out.permute(0, 4, 3, 1, 2).reshape(E, rd * rd, H1, W1)
+
+
+def _select_span(blocks: torch.Tensor, sh: torch.Tensor,
+                 n_sup: int) -> torch.Tensor:
+    """The n_sup-wide x span starting at ``sh`` (0..7) of each 16-wide
+    row of ``blocks`` (E, H1, W1, y_tap, 16), as a one-hot product."""
+    k16 = torch.arange(16, device=blocks.device)
+    taps = torch.arange(n_sup, device=blocks.device)
+    shift = (k16[:, None] == sh[..., None, None] + taps).to(blocks.dtype)
+    return torch.einsum("ehwyk,ehwkx->ehwyx", blocks, shift)
+
+
+def _masked_window(S, xi, yi, x_pad: int, y_pad: int, H2: int, W2: int,
+                   dx, dy, rd: int):
+    """Zero the support taps outside the unpadded (H2, W2) level (the span
+    starts at padded x ``xi``, y ``yi``), then the bilinear window as
+    (E, rd * rd, H1, W1)."""
+    n_sup = S.shape[-1]
+    taps = torch.arange(n_sup, device=S.device)
+    xs = (xi - x_pad)[..., None] + taps
+    ys = (yi - y_pad)[..., None] + taps
+    in_x = (xs >= 0) & (xs < W2)
+    in_y = (ys >= 0) & (ys < H2)
+    S = S * (in_y[..., :, None] & in_x[..., None, :]).to(S.dtype)
+    E, H1, W1 = S.shape[:3]
+    out = _window(S, dx, dy, rd)
+    return out.permute(0, 4, 3, 1, 2).reshape(E, rd * rd, H1, W1)
+
+
+def lookup_level_patch(volume: torch.Tensor, coords: torch.Tensor,
+                       radius: int = 3) -> torch.Tensor:
+    """:func:`lookup_level` through one (8 x 16) patch gather per pixel:
+    the JAX package's TPU gather layout (a TPU gather costs a row,
+    whatever its width), written in plain torch.  Same semantics."""
+    E, H1, W1, H2, W2 = volume.shape
+    rd = 2 * radius + 1
+    n_sup = rd + 1
+    x0, y0 = coords[..., 0], coords[..., 1]
+    fx, fy = torch.floor(x0), torch.floor(y0)
+    dx = (x0 - fx)[..., None]
+    dy = (y0 - fy)[..., None]
+    # y padded by n_sup on both sides, x by 8 in front and 24 behind, so
+    # every (8, 16) slice lies in range after the shift
+    volp = F.pad(volume, (8, 24, n_sup, n_sup))
+    H2p, W2p = volp.shape[-2:]
+    xi = torch.clamp(fx.long() - radius + 8, 0, W2p - 16)
+    yi = torch.clamp(fy.long() - radius + n_sup, 0, H2p - n_sup)
+    b0 = xi // 8
+    dev = volume.device
+    rows = yi[..., None] + torch.arange(n_sup, device=dev)
+    cols = (b0 * 8)[..., None] + torch.arange(16, device=dev)
+    idx = (rows[..., :, None] * W2p + cols[..., None, :]).reshape(
+        E, H1, W1, n_sup * 16)
+    blocks = torch.gather(volp.reshape(E, H1, W1, H2p * W2p), -1, idx)
+    S = _select_span(blocks.reshape(E, H1, W1, n_sup, 16), xi - b0 * 8,
+                     n_sup)
+    return _masked_window(S, xi, yi, 8, n_sup, H2, W2, dx, dy, rd)
+
+
+def lookup_level_blocks(volume: torch.Tensor, coords: torch.Tensor,
+                        radius: int = 3) -> torch.Tensor:
+    """:func:`lookup_level` through two aligned 8-wide block gathers per
+    (pixel, y tap): the JAX package's TPU gather layout, written in plain
+    torch.  Same semantics."""
+    E, H1, W1, H2, W2 = volume.shape
+    rd = 2 * radius + 1
+    n_sup = rd + 1
+    x0, y0 = coords[..., 0], coords[..., 1]
+    fx, fy = torch.floor(x0), torch.floor(y0)
+    dx = (x0 - fx)[..., None]
+    dy = (y0 - fy)[..., None]
+    # W2 padded to whole 8-wide blocks plus a spare one, 8 in front; H2 by
+    # n_sup on both sides, so negative starts stay in range
+    Wb_pad = ((W2 + 8 + 2 * 8 - 1) // 8 + 1) * 8
+    volp = F.pad(volume, (8, Wb_pad - W2 - 8, n_sup, n_sup))
+    H2p = H2 + 2 * n_sup
+    Wb = volp.shape[-1] // 8
+    vflat = volp.reshape(E, H1, W1, H2p * Wb, 8)
+    xi = torch.clamp(fx.long() - radius + 8, 0, Wb * 8 - 16)
+    yi = torch.clamp(fy.long() - radius + n_sup, 0, H2p - n_sup)
+    b0 = xi // 8
+    yrow = (yi[..., None] + torch.arange(n_sup, device=volume.device)) * Wb
+    idx = torch.stack([yrow + b0[..., None], yrow + b0[..., None] + 1],
+                      dim=-1).reshape(E, H1, W1, 2 * n_sup, 1)
+    blocks = torch.gather(vflat, 3, idx.expand(-1, -1, -1, -1, 8))
+    S = _select_span(blocks.reshape(E, H1, W1, n_sup, 16), xi - b0 * 8,
+                     n_sup)
+    return _masked_window(S, xi, yi, 8, n_sup, H2, W2, dx, dy, rd)
 
 
 def _window(S: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,

@@ -293,6 +293,13 @@ def _level_dims(levels, real_dims):
     return (ctypes.c_int * 16)(*dims)
 
 
+def _stream(coords: torch.Tensor) -> int:
+    """The current stream of the coords' device.  Each launch runs with
+    that device current (``torch.cuda.device``): the kernels launch on the
+    current device, and a shard's tensors may lie on another."""
+    return torch.cuda.current_stream(coords.device).cuda_stream
+
+
 def _raise_on(err: int) -> None:
     if err != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: CUDA error "
@@ -325,12 +332,12 @@ def lookup_pyramid_grouped4(levels: Sequence[torch.Tensor],
     out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
                       dtype=torch.float32 if n_act is None
                       else torch.bfloat16)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    _raise_on(_lib("corr_lookup_grouped4_launch")(
-        *[v.data_ptr() for v in levels], _level_dims(levels, dims),
-        _vec_mask(levels), coords.data_ptr(),
-        None if n_act is None else n_act.data_ptr(), out.data_ptr(), E, H1,
-        W1, int(n_act is None), stream))
+    with torch.cuda.device(coords.device):
+        _raise_on(_lib("corr_lookup_grouped4_launch")(
+            *[v.data_ptr() for v in levels], _level_dims(levels, dims),
+            _vec_mask(levels), coords.data_ptr(),
+            None if n_act is None else n_act.data_ptr(), out.data_ptr(), E,
+            H1, W1, int(n_act is None), _stream(coords)))
     launches["corr_lookup_grouped4"] += 1
     return out
 
@@ -347,12 +354,12 @@ def lookup_pyramid(levels: Sequence[torch.Tensor],
     E, H1, W1 = coords.shape[:3]
     out = torch.empty((E, H1, W1, CHANNELS), device=coords.device,
                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    _raise_on(_lib()(
-        *[v.data_ptr() for v in levels],
-        _level_dims(levels, [tuple(v.shape[-2:]) for v in levels]),
-        _vec_mask(levels), coords.data_ptr(), out.data_ptr(), E, H1, W1,
-        stream))
+    with torch.cuda.device(coords.device):
+        _raise_on(_lib()(
+            *[v.data_ptr() for v in levels],
+            _level_dims(levels, [tuple(v.shape[-2:]) for v in levels]),
+            _vec_mask(levels), coords.data_ptr(), out.data_ptr(), E, H1, W1,
+            _stream(coords)))
     launches["corr_lookup_pyramid"] += 1
     return out
 
@@ -368,10 +375,10 @@ def _launch_level(vol: torch.Tensor, coords: torch.Tensor,
                            dtype=torch.float32)
     out = torch.empty((E, H1, W1, RD * RD), device=coords.device,
                       dtype=torch.float32)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    _raise_on(_lib("corr_lookup_level_launch")(
-        vol.data_ptr(), coords.data_ptr(), out.data_ptr(), E, H1, W1, H2, W2,
-        stream))
+    with torch.cuda.device(coords.device):
+        _raise_on(_lib("corr_lookup_level_launch")(
+            vol.data_ptr(), coords.data_ptr(), out.data_ptr(), E, H1, W1, H2,
+            W2, _stream(coords)))
     launches[counter] += 1
     return out
 
@@ -425,9 +432,9 @@ def lookup_pyramid_l0(vol0: torch.Tensor, coords: torch.Tensor,
                       dtype=torch.float32)
     arr = (ctypes.c_int * 8)(*[d[0] for d in dims], *[d[1] for d in dims])
     mode, pair = l0_plan(vol0.data_ptr(), H2p, W2)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    _raise_on(_lib("corr_lookup_l0_launch")(
-        vol0.data_ptr(), arr, coords.data_ptr(), out.data_ptr(), E, H1, W1,
-        H2p, W2, mode, int(pair), stream))
+    with torch.cuda.device(coords.device):
+        _raise_on(_lib("corr_lookup_l0_launch")(
+            vol0.data_ptr(), arr, coords.data_ptr(), out.data_ptr(), E, H1,
+            W1, H2p, W2, mode, int(pair), _stream(coords)))
     launches["corr_lookup_l0"] += 1
     return out

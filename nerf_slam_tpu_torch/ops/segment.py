@@ -63,11 +63,42 @@ def segment_sum(x: torch.Tensor, ids: torch.Tensor,
     return sums.to(x.dtype).reshape((n_seg,) + tuple(x.shape[1:]))
 
 
-def segment_mean(x: torch.Tensor, ids: torch.Tensor,
-                 n_seg: int) -> torch.Tensor:
+def segment_sum_count(x: torch.Tensor, ids: torch.Tensor, n_seg: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two halves of :func:`segment_mean` that add across edge shards:
+    the f32 sums (n_seg, F) and the int64 counts (n_seg, 1)."""
+    sums, hit = _sums(x, ids, n_seg)
+    return sums, hit.sum(1, keepdim=True)
+
+
+def mean_from_sums(sums: torch.Tensor, count: torch.Tensor,
+                   like: torch.Tensor) -> torch.Tensor:
+    """sums / count (empty segments 0), rounded once to ``like``'s dtype
+    and shaped as its blocks: (n_seg,) + like.shape[1:]."""
+    return (sums / torch.clamp(count, min=1)).to(like.dtype).reshape(
+        (count.shape[0],) + tuple(like.shape[1:]))
+
+
+def segment_mean(x, ids, n_seg: int) -> torch.Tensor:
     """Mean of the (E, ...) blocks of ``x`` per segment id in [0, n_seg);
     ids outside it are dropped, empty segments are 0.  The sum and the
-    division by the count are f32, rounded once to x's dtype."""
-    sums, hit = _sums(x, ids, n_seg)
-    count = torch.clamp(hit.sum(1, keepdim=True), min=1)
-    return (sums / count).to(x.dtype).reshape((n_seg,) + tuple(x.shape[1:]))
+    division by the count are f32, rounded once to x's dtype.  ``x`` and
+    ``ids`` may be lists, one an edge shard: the shards' sums and counts
+    are then reduced (:func:`reduce_in_order`, on the first shard's
+    device) before the one division."""
+    if isinstance(x, torch.Tensor):
+        return mean_from_sums(*segment_sum_count(x, ids, n_seg), x)
+    sums, count = reduce_in_order(
+        [segment_sum_count(a, i, n_seg) for a, i in zip(x, ids)],
+        x[0].device)
+    return mean_from_sums(sums, count, x[0])
+
+
+def reduce_in_order(parts, device) -> tuple:
+    """Sum equal-shaped tuples of tensors, one a shard, on ``device``: the
+    first shard's values plus each next shard's, in shard order, so a
+    given shard count always gives the same bits."""
+    out = [t.to(device) for t in parts[0]]
+    for part in parts[1:]:
+        out = [a + b.to(device) for a, b in zip(out, part)]
+    return tuple(out)

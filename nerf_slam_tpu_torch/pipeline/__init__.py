@@ -1,4 +1,5 @@
+from ..utils.runtime import DEVICE_LOCK  # noqa: F401
 from .module import PipelineModule, ModuleThread  # noqa: F401
 from .modules import (DataModule, SlamModule, FusionModule,  # noqa: F401
-                      EvalSink, DEVICE_LOCK)
+                      GuiModule, EvalSink)
 from .runner import connect, run_parallel, run_sequential  # noqa: F401

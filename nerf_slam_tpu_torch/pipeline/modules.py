@@ -1,21 +1,19 @@
-"""Concrete pipeline stages: data source, SLAM, fusion, eval sink.
+"""Concrete pipeline stages: data source, SLAM, fusion, GUI, eval sink.
 
-Equivalents of NeRF-SLAM's DataModule / SlamModule / FusionModule
-wrappers.  ``DEVICE_LOCK`` serializes the SLAM and fusion stages' device
-work when they run as threads, so one stage's host syncs never interleave
-with the other's launches on the shared stream.
+Equivalents of NeRF-SLAM's DataModule / SlamModule / FusionModule /
+GuiModule wrappers.  The SLAM, fusion and GUI stages hold
+``utils.runtime.DEVICE_LOCK`` around their device work when they run as
+threads (looked up at each spin, so a caller may swap in the no-op lock).
 """
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Dict, Optional
 
 from ..fusion.nerf_fusion import MASK_TYPES
 from ..slam.meta_slam import SLAM
+from ..utils import runtime
 from .module import PipelineModule
-
-DEVICE_LOCK = threading.RLock()
 
 
 class DataModule(PipelineModule):
@@ -59,7 +57,7 @@ class SlamModule(PipelineModule):
             packet = packet["data"]
         if packet is None:
             return None
-        with DEVICE_LOCK:
+        with runtime.DEVICE_LOCK:
             if self._is_slam:
                 _, out = self.frontend(packet)
             else:
@@ -132,7 +130,7 @@ class FusionModule(PipelineModule):
         if isinstance(packet, dict) and ("slam" in packet
                                          or "gui" in packet):
             pkt, gui_pkt = packet.get("slam"), packet.get("gui")
-        with DEVICE_LOCK:
+        with runtime.DEVICE_LOCK:
             if gui_pkt is not None:
                 for cmd in gui_pkt.get("gui_commands", []):
                     self.handle_command(cmd)
@@ -151,6 +149,27 @@ class FusionModule(PipelineModule):
                     >= self.extra_spins_after_done):
                 self.shutdown_module()
         return {"fusion_step": getattr(self.fusion, "iteration", 0)}
+
+
+class GuiModule(PipelineModule):
+    """Visualization stage wrapping a :class:`gui.HeadlessGui` or
+    :class:`gui.LiveViewer`; the GUI's queued commands leave through its
+    output queue, which the CLI connects to the fusion stage (the GUI ->
+    fusion back-channel)."""
+
+    def __init__(self, gui, parallel_run: bool = True):
+        super().__init__("gui", parallel_run, input_timeout=1e-3)
+        self.gui = gui
+
+    def spin_once(self, packet):
+        pkt = packet.get("slam") if isinstance(packet, dict) else packet
+        if pkt is not None:
+            with runtime.DEVICE_LOCK:
+                self.gui.visualize(pkt)
+            if pkt.get("is_last_frame"):
+                self.shutdown_module()
+        cmds = self.gui.pop_commands()
+        return {"gui_commands": cmds} if cmds else None
 
 
 class EvalSink(PipelineModule):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..geometry import camera, se3
+from ..ops.segment import reduce_in_order
 from ..ops.segment import segment_sum as seg_sum
 
 
@@ -183,13 +184,14 @@ def linearize(poses, disps, intrinsics, targets, weights, p: DBAPlan,
             (v12[:, :6], v12[:, 6:]), (Eiz, Ejz), (Cii, bz))
 
 
-def assemble(blocks, p: DBAPlan, disps, eta, disps_sens, alpha=0.05):
-    """Window-local dense system: Hd (6P, 6P), vd (6P,), Ehat (P, K, 6,
-    HW), C (K, HW), w (K, HW)."""
+def assemble_edges(blocks, p: DBAPlan):
+    """The edge sums of the window-local system, before any prior:
+    Hgrid (P, P, 6, 6), v (P, 6), Ehat (P * K, 6, HW), C (K, HW), w (K,
+    HW).  Linear in the edges, so the sums of an edge-sharded system add
+    across shards (:func:`reduce_in_order`)."""
     (Hii, Hij, Hjj), (vi, vj), (Eiz, Ejz), (Cii, bz) = blocks
     P = p.px.shape[0]
     K = p.kx.shape[0]
-    HW = Cii.shape[-1]
 
     def pair_idx(a, b, n):
         return torch.where((a >= 0) & (b >= 0), a * n + b, -1)
@@ -204,6 +206,19 @@ def assemble(blocks, p: DBAPlan, disps, eta, disps_sens, alpha=0.05):
     C, w = seg_sum(torch.stack([Cii, bz], 1), p.kk, K).unbind(1)
     Ehat = seg_sum(torch.cat([Eiz, Ejz]),
                    pair_idx(pp, torch.cat([p.kk, p.kk]), K), P * K)
+    return Hgrid, v, Ehat, C, w
+
+
+def add_priors(sums, p: DBAPlan, disps, eta, disps_sens, alpha=0.05):
+    """The window-local dense system from the edge sums of
+    :func:`assemble_edges`: the depth damping ``eta`` (or the sensed-depth
+    prior of weight ``alpha`` where ``disps_sens`` > 0) added once per
+    depth slot, padded slots made harmless.  Returns Hd (6P, 6P), vd
+    (6P,), Ehat (P, K, 6, HW), C (K, HW), w (K, HW)."""
+    Hgrid, v, Ehat, C, w = sums
+    P = p.px.shape[0]
+    K = p.kx.shape[0]
+    HW = C.shape[-1]
     d_k = disps[p.kx].reshape(K, HW)
     s_k = disps_sens.reshape(K, HW)
     m = (s_k > 0).to(C.dtype)
@@ -213,6 +228,40 @@ def assemble(blocks, p: DBAPlan, disps, eta, disps_sens, alpha=0.05):
     w = w * p.k_valid[:, None]
     Hd = Hgrid.permute(0, 2, 1, 3).reshape(P * 6, P * 6)
     return Hd, v.reshape(P * 6), Ehat.reshape(P, K, 6, HW), C, w
+
+
+def assemble(blocks, p: DBAPlan, disps, eta, disps_sens, alpha=0.05):
+    """Window-local dense system: Hd (6P, 6P), vd (6P,), Ehat (P, K, 6,
+    HW), C (K, HW), w (K, HW)."""
+    return add_priors(assemble_edges(blocks, p), p, disps, eta, disps_sens,
+                      alpha)
+
+
+class EdgeShard(NamedTuple):
+    """One shard's edges for :func:`sharded_system`: its plan (the edge
+    arrays of its slots, the slot arrays replicated) and its flow targets
+    and weights, all on the shard's device."""
+    plan: DBAPlan
+    targets: torch.Tensor
+    weights: torch.Tensor
+
+
+def sharded_system(poses, disps, intrinsics, shards, p: DBAPlan, eta,
+                   disps_sens, stereo_rel=None):
+    """The window-local system of edges split over ``shards``: each shard
+    linearizes its edges and sums them on its own device, the sums are
+    reduced on ``p``'s device in shard order, and the priors are added
+    once.  Returns (Hd, vd, Ehat, C, w) and the last shard's blocks."""
+    parts = []
+    for sh in shards:
+        dev = sh.plan.ii.device
+        blocks = linearize(poses.to(dev), disps.to(dev), intrinsics.to(dev),
+                           sh.targets, sh.weights, sh.plan,
+                           stereo_rel=(None if stereo_rel is None
+                                       else stereo_rel.to(dev)))
+        parts.append(assemble_edges(blocks, sh.plan))
+    return (add_priors(reduce_in_order(parts, p.ii.device), p, disps, eta,
+                       disps_sens), blocks)
 
 
 def _gauge_mask(Hd, vd, p: DBAPlan):
@@ -313,22 +362,29 @@ def covariances(L, Ehat, Q, p: DBAPlan):
 
 def dba_iterations(poses, disps, intrinsics, targets, weights, eta,
                    disps_sens, p: DBAPlan, iters: int = 2, ep: float = 0.1,
-                   lm: float = 1e-4, stereo_rel=None):
+                   lm: float = 1e-4, stereo_rel=None, shards=None):
     """``iters`` relinearized Gauss-Newton steps on the full keyframe
     buffers (N, 7) / (N, H, W); only window slots change.  eta: (K, H, W)
     damping per depth slot; disps_sens: (K, H, W) sensed inverse depths
-    (0 where absent); ``stereo_rel`` as in :func:`linearize`.  Returns
-    (poses, disps)."""
+    (0 where absent); ``stereo_rel`` as in :func:`linearize`.
+    ``shards``: the edges split into :class:`EdgeShard` s (``targets`` and
+    ``weights`` are then unused): each step reduces the shards' edge sums
+    (:func:`sharded_system`) and solves with the dense Schur complement
+    on ``p``'s device.  Returns (poses, disps)."""
     K = p.kx.shape[0]
     Hh, Ww = disps.shape[-2:]
     mask = (p.p_valid * (1 - p.p_fixed))[:, None]
     N = poses.shape[0]
     px_safe = torch.where(p.p_valid > 0, p.px, N)
     px_read = p.px.clamp(max=N - 1)       # padded slots past the buffer
+    if shards is None:
+        shards = [EdgeShard(p, targets, weights)]
+    else:   # the interaction list spans every shard's edges
+        p = p._replace(pair_a=None, pair_b=None, pair_valid=None)
     for _ in range(iters):
-        blocks = linearize(poses, disps, intrinsics, targets, weights, p,
-                           stereo_rel=stereo_rel)
-        Hd, vd, Ehat, C, w = assemble(blocks, p, disps, eta, disps_sens)
+        (Hd, vd, Ehat, C, w), blocks = sharded_system(
+            poses, disps, intrinsics, shards, p, eta, disps_sens,
+            stereo_rel)
         dx, dz, _, _ = solve_system(Hd, vd, Ehat, C, w, p, ep, lm,
                                     E_blocks=blocks[2])
         old = poses[px_read]

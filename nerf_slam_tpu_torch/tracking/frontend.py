@@ -27,6 +27,7 @@ order, and syncs to the host where a decision needs a value.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, fields
 from typing import Any, Dict, Optional, Tuple
 
@@ -36,6 +37,8 @@ import torch
 from ..geometry import camera, se3, upsample
 from ..models import DroidNet
 from ..ops import corr, corr_lookup
+from ..ops.segment import reduce_in_order
+from ..parallel.tracking import placement, shard_devices, shard_plan
 from ..solver import dba
 from . import graph as graphlib
 
@@ -92,6 +95,13 @@ class FrontendConfig:
     # keyframe and anchor the gauge in the DBA (monocular runs keep the
     # free Sim(3) gauge)
     rgbd: bool = False
+    # edge-sharded update: split the active and the inactive edge slots
+    # into this many shards (both counts must divide by it), each run on
+    # its device of parallel.tracking.shard_devices: projective
+    # transform, lookup, ConvGRU, linearization and edge sums per shard;
+    # the GRU pool, the DBA's edge sums and the flow RMS reduced across
+    # shards; the solve once.  1 = off.
+    edge_shards: int = 1
 
 
 CORR_IMPLS = ("pallas4g", "pallas", "pallas_grouped", "onehot")
@@ -142,6 +152,20 @@ class InactiveState:
     flow_weight: torch.Tensor     # (Ei, h, w, 2)
 
 
+@dataclass
+class _Shard:
+    """One edge shard of an update round, on its device: its slots of the
+    global edge buffers (views on the tracker's device, copies elsewhere)
+    and its plan (its slots' edge rows, the slot arrays replicated)."""
+    net: DroidNet
+    act: slice                    # its active slots
+    plan: dba.DBAPlan             # [its active ++ its inactive slots]
+    levels: list                  # its active slots' correlation levels
+    in_flow: torch.Tensor         # its inactive slots' flows
+    in_weight: torch.Tensor
+    gates: tuple                  # the GRU's context gates of its edges
+
+
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 _GTSAM_PERM = [3, 4, 5, 0, 1, 2]     # DROID [v, w] -> GTSAM [w, v]
@@ -161,6 +185,10 @@ class RaftVisualFrontend:
         if cfg.schur_impl not in ("dense", "sparse"):
             raise ValueError(f"schur_impl {cfg.schur_impl!r} is not 'dense' "
                              f"or 'sparse'")
+        n = cfg.edge_shards
+        if n < 1 or cfg.e_active % n or cfg.e_inactive % n:
+            raise ValueError(f"e_active/e_inactive must divide "
+                             f"edge_shards={n}")
         self.cfg = cfg
         self.device = torch.device(device)
         # stored pyramid levels per edge
@@ -171,6 +199,14 @@ class RaftVisualFrontend:
             8 * (cfg.e_active + cfg.e_inactive)))))
         # tracking is inference only: no autograd graphs anywhere
         self.net = net.to(self.device).eval().requires_grad_(False)
+        self.shard_devices = shard_devices(n, self.device)
+        # a replica of the network on each other device a shard runs on
+        self._nets = {d: self.net if d == self.device
+                      else copy.deepcopy(self.net).to(d)
+                      for d in self.shard_devices}
+        if n > 1:
+            print(f"edge_shards={n} {placement(self.shard_devices)}",
+                  flush=True)
         self.H, self.W = image_size
         self.h, self.w = self.H // cfg.dsf, self.W // cfg.dsf
         self.world_T_cam0_t0 = (np.eye(4, dtype=np.float32)
@@ -548,12 +584,12 @@ class RaftVisualFrontend:
                                   valid, pad_to=self._pair_pad)
         return dba.plan_from_numpy(arrays, self.device)
 
-    def _lookup(self, n_act: torch.Tensor):
+    def _lookup(self, levels, n_act: torch.Tensor):
         """The update loop's lookup under ``cfg.corr_impl``: a function
-        from level-0 coords (Ea, h, w, 2) to (Ea, h, w, 196) correlation
-        features, through the kernel the JAX tracker's configuration of the
-        same name reaches."""
-        impl, levels = self.cfg.corr_impl, self.edges.corr_levels
+        from level-0 coords (E, h, w, 2) to (E, h, w, 196) correlation
+        features of the edges whose ``levels`` are given, through the
+        kernel the JAX tracker's configuration of the same name reaches."""
+        impl = self.cfg.corr_impl
         dims = corr_lookup.pyramid_dims(self.h, self.w)
         if impl == "pallas4g":
             # active edges occupy the slot prefix; the kernel reads the
@@ -567,66 +603,121 @@ class RaftVisualFrontend:
         cp = corr.CorrPyramid(levels)
         return lambda c: cp(c).permute(0, 2, 3, 1)
 
-    def _iterate(self, n: int, c: dict, plan: dba.DBAPlan, gates_inp):
+    def _shards(self, plan: dba.DBAPlan):
+        """The round's edge shards: shard s owns active slots [s Ea/n,
+        (s+1) Ea/n) and inactive slots [s Ei/n, (s+1) Ei/n) of the global
+        edge buffers.  One shard holds the whole plan and the buffers
+        themselves."""
+        cfg, st, ed = self.cfg, self.state, self.edges
+        Ea, Ei, n = cfg.e_active, cfg.e_inactive, cfg.edge_shards
+        ea, ei = Ea // n, Ei // n
+        shards = []
+        for s, dev in enumerate(self.shard_devices):
+            act, ina = slice(s * ea, (s + 1) * ea), slice(s * ei, (s + 1) * ei)
+            sp = plan if n == 1 else shard_plan(plan, torch.cat([
+                torch.arange(act.start, act.stop, device=self.device),
+                Ea + torch.arange(ina.start, ina.stop, device=self.device)]),
+                dev)
+            net = self._nets[dev]
+            shards.append(_Shard(
+                net=net, act=act, plan=sp,
+                levels=[lv[act].to(dev) for lv in ed.corr_levels],
+                in_flow=self.inactive.flow[ina].to(dev),
+                in_weight=self.inactive.flow_weight[ina].to(dev),
+                gates=net.update_precompute(
+                    st.cst_contexts[plan.ii[act]].to(dev))))
+        return shards
+
+    def _gather(self, parts) -> torch.Tensor:
+        """The shards' slices of a per-edge tensor, as one tensor on the
+        tracker's device."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([x.to(self.device) for x in parts], 0)
+
+    def _edge_shards(self, c: dict, shards):
+        """Each shard's DBA edges: its flows ++ its inactive flows."""
+        return [dba.EdgeShard(sh.plan, torch.cat([f, sh.in_flow], 0),
+                              torch.cat([w, sh.in_weight], 0))
+                for sh, f, w in zip(shards, c["flow"], c["flow_w"])]
+
+    def _iterate(self, n: int, c: dict, plan: dba.DBAPlan, shards):
         """n GRU + DBA iterations over the active slots, updating the
-        carry ``c`` (poses, disps, hidden, flow, flow_w, damping)."""
-        cfg, st, Ea = self.cfg, self.state, self.cfg.e_active
-        ii, jj = plan.ii[:Ea], plan.jj[:Ea]
-        on = plan.edge_valid[:Ea][:, None, None, None] > 0
-        seg = torch.where(on[:, 0, 0, 0], plan.kk[:Ea], -1)
+        carry ``c`` (poses, disps and damping, and per shard hidden, flow
+        and flow_w).  Per shard: projective transform, lookup (the gated
+        kernel with the shard's own active count), ConvGRU; then the GRU
+        pool and the DBA's edge sums across shards, the solve once."""
+        cfg, st = self.cfg, self.state
+        ea = cfg.e_active // cfg.edge_shards
         K = plan.kx.shape[0]
-        lookup = self._lookup(on.sum().to(torch.int32).reshape(1))
         sens_k = st.idepths_sensed[plan.kx]
+        ons = [sh.plan.edge_valid[:ea][:, None, None, None] > 0
+               for sh in shards]
+        segs = [torch.where(on[:, 0, 0, 0], sh.plan.kk[:ea], -1)
+                for sh, on in zip(shards, ons)]
+        lookups = [self._lookup(sh.levels,
+                                on.sum().to(torch.int32).reshape(1))
+                   for sh, on in zip(shards, ons)]
         for _ in range(n):
-            coords1, _, _ = camera.projective_transform(
-                c["poses"], c["disps"], st.intrinsics, ii, jj,
-                stereo_rel=self._rig)
-            motion = torch.cat([coords1 - self._coords0,
-                                c["flow"] - coords1], -1).clamp(-64.0, 64.0)
-            cvals = lookup(coords1.contiguous()).to(torch.bfloat16)
-            hidden2, delta, weight, eta = self.net.update(
-                c["hidden"], None, cvals, motion.to(torch.bfloat16), seg, K,
-                False, gates_inp)
-            c["flow"] = torch.where(on, coords1 + delta, c["flow"])
-            c["flow_w"] = torch.where(on, weight, c["flow_w"])
-            c["hidden"] = torch.where(on, hidden2, c["hidden"])
+            hiddens = []
+            for s, sh in enumerate(shards):
+                dev = sh.plan.ii.device
+                coords1, _, _ = camera.projective_transform(
+                    c["poses"].to(dev), c["disps"].to(dev),
+                    st.intrinsics.to(dev), sh.plan.ii[:ea], sh.plan.jj[:ea],
+                    stereo_rel=None if self._rig is None
+                    else self._rig.to(dev))
+                flow = c["flow"][s]
+                motion = torch.cat([coords1 - self._coords0.to(dev),
+                                    flow - coords1], -1).clamp(-64.0, 64.0)
+                cvals = lookups[s](coords1.contiguous()).to(torch.bfloat16)
+                hidden2, delta, weight = sh.net.update(
+                    c["hidden"][s], None, cvals, motion.to(torch.bfloat16),
+                    gates_inp=sh.gates)
+                on = ons[s]
+                c["flow"][s] = torch.where(on, coords1 + delta, flow)
+                c["flow_w"][s] = torch.where(on, weight, c["flow_w"][s])
+                c["hidden"][s] = torch.where(on, hidden2, c["hidden"][s])
+                hiddens.append(hidden2)
+            eta = self.net.eta(hiddens, segs, K)
             c["damping"] = dba.kx_scatter(c["damping"], plan.kx,
                                           plan.k_valid, eta)
-            targets = torch.cat([c["flow"], self.inactive.flow], 0)
-            weights = torch.cat([c["flow_w"], self.inactive.flow_weight], 0)
             eta_k = cfg.damping_scale * c["damping"][plan.kx] \
                 + cfg.damping_offset
+            edges = self._edge_shards(c, shards)
             c["poses"], c["disps"] = dba.dba_iterations(
-                c["poses"], c["disps"], st.intrinsics, targets, weights,
-                eta_k, sens_k, plan, iters=cfg.gn_iters, ep=cfg.ep,
-                lm=cfg.lm, stereo_rel=self._rig)
+                c["poses"], c["disps"], st.intrinsics, edges[0].targets,
+                edges[0].weights, eta_k, sens_k, plan, iters=cfg.gn_iters,
+                ep=cfg.ep, lm=cfg.lm, stereo_rel=self._rig,
+                shards=edges if len(edges) > 1 else None)
 
     def _commit_light(self, c: dict):
         st, ed = self.state, self.edges
         st.cam_T_world, st.idepths, st.damping = \
             c["poses"], c["disps"], c["damping"]
-        ed.hidden, ed.flow, ed.flow_weight = \
-            c["hidden"], c["flow"], c["flow_w"]
+        ed.hidden, ed.flow, ed.flow_weight = (
+            self._gather(c[k]) for k in ("hidden", "flow", "flow_w"))
 
-    def _export(self, c: dict, plan: dba.DBAPlan, seed_next: int):
+    def _export(self, c: dict, plan: dba.DBAPlan, shards, seed_next: int):
         """Accepting update's tail: covariances (unless
-        ``cfg.compute_covariances`` is off), flow RMS, convex upsampling of
-        idepths and depth covariances, next-kf seeding."""
+        ``cfg.compute_covariances`` is off; from the system reduced over
+        the shards), flow RMS (its sums reduced over the shards), convex
+        upsampling of idepths and depth covariances (the upmask pooled
+        over the shards), next-kf seeding."""
         cfg, st = self.cfg, self.state
         h, w = self.h, self.w
         K, B = plan.kx.shape[0], cfg.buffer
         poses, disps = c["poses"], c["disps"]
-        targets = torch.cat([c["flow"], self.inactive.flow], 0)
-        weights = torch.cat([c["flow_w"], self.inactive.flow_weight], 0)
+        edges = self._edge_shards(c, shards)
         if cfg.compute_covariances:
             eta_k = cfg.damping_scale * c["damping"][plan.kx] \
                 + cfg.damping_offset
             sens_k = st.idepths_sensed[plan.kx]
-            blocks = dba.linearize(poses, disps, st.intrinsics, targets,
-                                   weights, plan, stereo_rel=self._rig)
-            Hd, vd, Ehat, C, wv = dba.assemble(blocks, plan, disps, eta_k,
-                                               sens_k)
-            eb = blocks[2] if cfg.schur_impl == "sparse" else None
+            (Hd, vd, Ehat, C, wv), blocks = dba.sharded_system(
+                poses, disps, st.intrinsics, edges, plan, eta_k, sens_k,
+                self._rig)
+            eb = (blocks[2] if cfg.schur_impl == "sparse"
+                  and len(edges) == 1 else None)
             _, _, L, Q = dba.solve_system(Hd, vd, Ehat, C, wv, plan, cfg.ep,
                                           cfg.lm, E_blocks=eb)
             pose_cov_p, z_cov = dba.covariances(L, Ehat, Q, plan)
@@ -636,12 +727,18 @@ class RaftVisualFrontend:
                 plan.px.shape[0], 1, 1)
             z_cov = torch.ones((K, h, w), device=self.device)
 
-        coords1, valid, _ = camera.projective_transform(
-            poses, disps, st.intrinsics, plan.ii, plan.jj,
-            stereo_rel=self._rig)
-        r = (targets - coords1) * valid * plan.edge_valid[:, None, None, None]
-        self.last_flow_rms = torch.sqrt(
-            (r * r).sum() / torch.clamp(valid.sum() * 2.0, min=1.0))
+        sums = []
+        for e in edges:
+            dev = e.plan.ii.device
+            coords1, valid, _ = camera.projective_transform(
+                poses.to(dev), disps.to(dev), st.intrinsics.to(dev),
+                e.plan.ii, e.plan.jj,
+                stereo_rel=None if self._rig is None else self._rig.to(dev))
+            r = (e.targets - coords1) * valid \
+                * e.plan.edge_valid[:, None, None, None]
+            sums.append(((r * r).sum(), valid.sum() * 2.0))
+        num, den = reduce_in_order(sums, self.device)
+        self.last_flow_rms = torch.sqrt(num / torch.clamp(den, min=1.0))
 
         self._commit_light(c)
         px_safe = torch.where(plan.p_valid > 0, plan.px, B)
@@ -653,9 +750,10 @@ class RaftVisualFrontend:
         depths_cov_k = z_cov / torch.clamp(disps[plan.kx], min=1e-3) ** 4
         st.depths_cov = dba.kx_scatter(st.depths_cov, plan.kx, plan.k_valid,
                                        depths_cov_k)
-        seg = torch.where(plan.edge_valid[:cfg.e_active] > 0,
-                          plan.kk[:cfg.e_active], -1)
-        _, upmask = self.net.aggregate(c["hidden"], seg, K)
+        ea = cfg.e_active // cfg.edge_shards
+        _, upmask = self.net.aggregate(c["hidden"], [
+            torch.where(e.plan.edge_valid[:ea] > 0, e.plan.kk[:ea], -1)
+            for e in edges], K)
         um = upmask.permute(0, 3, 1, 2).reshape(K, 576, h, w)
         st.idepths_up = dba.kx_scatter(
             st.idepths_up, plan.kx, plan.k_valid,
@@ -686,7 +784,7 @@ class RaftVisualFrontend:
         ``seed_sensed_slot``: the keyframe whose inverse depths start from
         its sensed ones where it has them (-1: none).  None: empty graph,
         nothing ran."""
-        cfg, g, st, ed = self.cfg, self.graph, self.state, self.edges
+        cfg, g, st = self.cfg, self.graph, self.state
         if g.n_edges == 0:
             return None
         kf0 = max(0, int(g.ii.min()))
@@ -694,18 +792,21 @@ class RaftVisualFrontend:
         self._flush_pending()
         ed = self.edges
         plan = self._plan(use_inactive, kf0, kf1)
-        gates_inp = self.net.update_precompute(
-            st.cst_contexts[plan.ii[:cfg.e_active]])
+        shards = self._shards(plan)
         disps = st.idepths
         if seed_sensed_slot >= 0:
             sensed = st.idepths_sensed[seed_sensed_slot]
             disps = disps.clone()
             disps[seed_sensed_slot] = torch.where(
                 sensed > 0, sensed, disps[seed_sensed_slot])
+
+        def split(x):
+            return [x[sh.act].to(sh.plan.ii.device) for sh in shards]
+
         c = {"poses": st.cam_T_world, "disps": disps,
-             "hidden": ed.hidden, "flow": ed.flow, "flow_w": ed.flow_weight,
-             "damping": st.damping}
-        self._iterate(n_iters, c, plan, gates_inp)
+             "hidden": split(ed.hidden), "flow": split(ed.flow),
+             "flow_w": split(ed.flow_weight), "damping": st.damping}
+        self._iterate(n_iters, c, plan, shards)
         g.age += n_iters
         da, db = kf_dist_pair if kf_dist_pair is not None else (0, 0)
         kf_dist = camera.frame_distance_bidirectional(
@@ -717,10 +818,16 @@ class RaftVisualFrontend:
             if float(kf_dist) < cfg.keyframe_thresh:
                 self._commit_light(c)
                 return False
-            self._iterate(n_iters2, c, plan, gates_inp)
-        self._export(c, plan, seed_next)
+            self._iterate(n_iters2, c, plan, shards)
+        self._export(c, plan, shards, seed_next)
         self.viz_idx[kf0:self.kf_idx + 1] = True
         return True
+
+    def has_enough_motion(self, feat_cur: torch.Tensor) -> bool:
+        """Whether the frame with features ``feat_cur`` (h, w, 128) moved
+        more than ``cfg.motion_filter_thresh`` from the last keyframe."""
+        return float(self._motion_mag(feat_cur, self.last_kf_idx)) \
+            > self.cfg.motion_filter_thresh
 
     # ------------------------------------------------------------------
     # the state machine

@@ -7,18 +7,21 @@ The counterparts on a GPU of the JAX package's ``utils/runtime.py``:
   dispatches and host-blocking fetches, and diffs around a run;
 - ``profile_trace``: a ``torch.profiler`` trace (CPU and CUDA activities)
   around a block, written as a Chrome trace into ``logdir``;
-- ``device_peak_flops``: the card's name and dense peak rate.
+- ``device_peak_flops``: the card's name and dense peak rate;
+- ``DEVICE_LOCK``: the lock the pipeline's stages hold around their
+  device work (a no-op under ``NERF_SLAM_TPU_NO_LOCK``), and
+  ``fusion_device``: the mapping stage's device under ``--device_split``.
 
 The JAX module's XLA compilation cache and compile counting have no
 counterpart: PyTorch compiles nothing ahead of an eager call, and the
 port's CUDA kernels are built once into ``nerf_slam_tpu_torch/_build/``
-(``ops/build.py``).  The device lock stays in ``pipeline/modules.py``;
-the mapping device of a second card belongs with the ``parallel/`` item.
+(``ops/build.py``).
 """
 from __future__ import annotations
 
 import os
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 from typing import Optional
@@ -97,3 +100,45 @@ def profile_trace(logdir: Optional[str] = None):
                                 ".json")
     prof.export_chrome_trace(path)
     print(f"trace written to {path} ({secs:.2f}s)", flush=True)
+
+
+class _NullLock:
+    """Reentrant no-op stand-in for ``DEVICE_LOCK``."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+    def acquire(self, *a, **k):
+        return True
+
+    def release(self):
+        pass
+
+
+# The pipeline's stages run as threads of one process and take this lock
+# around their device work, so one stage's host syncs never interleave
+# with another's launches on a shared card.  NERF_SLAM_TPU_NO_LOCK=1
+# replaces it with a no-op: the stages then dispatch concurrently, which
+# the tracking || mapping split over two cards (--device_split) needs.
+DEVICE_LOCK = (_NullLock() if os.environ.get("NERF_SLAM_TPU_NO_LOCK")
+               else threading.RLock())
+
+
+def fusion_device(device_split: bool = False, base="cuda"):
+    """The mapping stage's device: under ``device_split`` the second
+    device of ``base``'s type (``cuda:1``) where two or more are visible,
+    else None, which leaves mapping on ``base`` beside tracking (with one
+    card the split falls back to shared-device scheduling)."""
+    import torch
+    if not device_split:
+        return None
+    kind = torch.device(base).type
+    count = torch.cuda.device_count() if kind == "cuda" else 1
+    if count < 2:
+        print("device_split requested but only one device visible; "
+              "falling back to shared-device scheduling")
+        return None
+    return torch.device(kind, 1)

@@ -2,8 +2,9 @@
 tiny size: the CLI runs the synthetic room through tracking and each map
 backend, with ``--stereo``, ``--rgbd`` and ``--profile``, and TUM and
 EuRoC fixtures, and prints the JSON keys the JAX package's CLI prints;
-the flags whose features are not ported raise; the fusion stage's modes
-end as the JAX stage's do, and its commands act on the map."""
+``--gui`` (with ``--viewer_port``), ``--device_split`` and
+``--edge_shards`` run; the fusion stage's modes end as the JAX stage's
+do, and its commands act on the map."""
 import json
 import os
 
@@ -118,13 +119,112 @@ def test_cli_stereo_and_rgbd_run(capsys, monkeypatch, flag):
         assert bool((fe.state.idepths_sensed[:n - 1] > 0).all())
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--gui"], "gui/"), (["--viewer_port", "8000"], "gui/"),
-    (["--device_split"], "parallel/"),
-    (["--edge_shards", "2"], "parallel/")])
-def test_cli_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        slam_demo.run(slam_demo.parse_args(["--device", "cpu"] + flags))
+def _small_nerf(monkeypatch):
+    """A narrow NeRF map (32 rays a batch, few samples; its mesh 32^3, at
+    density 1, which the barely trained field crosses) to keep the CPU
+    runs short; returns the list the built maps go to."""
+    small = tfusion.NerfFusionConfig
+    ngp = tfusion.NGPConfig(pe_hidden=32, hidden=16, n_uniform=16,
+                            n_depth=8)
+    monkeypatch.setattr(tfusion, "NerfFusionConfig", lambda **kw: small(
+        batch_rays=32, ngp=ngp, render_samples=16, occ_res=16, **kw))
+    mesh = tfusion.NerfFusion.extract_mesh
+    monkeypatch.setattr(tfusion.NerfFusion, "extract_mesh",
+                        lambda self, path="fusion_mesh.obj": mesh(
+                            self, path, resolution=32, iso=1.0))
+    built = []
+    build = slam_demo.build_fusion
+    monkeypatch.setattr(slam_demo, "build_fusion",
+                        lambda args: built.append(build(args)) or built[-1])
+    return built
+
+
+def test_cli_gui_exports_and_commands(capsys, monkeypatch, tmp_path):
+    """``--gui``: the headless GUI stage writes its clouds, trajectory and
+    heatmaps under ``--viz_out``, and its end commands reach the fusion
+    stage, which writes the mesh into the working directory and
+    evaluates."""
+    _small_nerf(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    viz = tmp_path / "viz"
+    res = slam_demo.run(slam_demo.parse_args(
+        TINY + ["--fusion", "nerf", "--gui", "--viz_out", str(viz)]))
+    out = capsys.readouterr().out
+    assert json.loads(out.strip().splitlines()[-1]) == res
+    assert res["n_keyframes"] > 8 and "gui_mean_ms" in res
+    files = os.listdir(viz)
+    assert "trajectory.json" in files
+    for prefix in ("cloud_", "depth_", "sigma_"):
+        assert any(f.startswith(prefix) for f in files), (prefix, files)
+    traj = json.loads((viz / "trajectory.json").read_text())
+    assert {t["kf"] for t in traj} == set(range(res["n_keyframes"]))
+    assert "[fusion] eval:" in out
+    assert (tmp_path / "fusion_mesh.obj").read_text().startswith("v ")
+
+
+def test_cli_gui_live_viewer(capsys, monkeypatch, tmp_path):
+    """``--gui --viewer_port``: a live viewer on that port serves the run's
+    trajectory, one entry a keyframe packet."""
+    import socket
+
+    from nerf_slam_tpu_torch import gui
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    viewers = []
+    cls = gui.LiveViewer
+    monkeypatch.setattr(gui, "LiveViewer", lambda *a, **k: viewers.append(
+        cls(*a, **k)) or viewers[-1])
+    res = slam_demo.run(slam_demo.parse_args(
+        TINY + ["--fusion", "none", "--gui", "--viewer_port", str(port),
+                "--viz_out", str(tmp_path)]))
+    v = viewers[0]
+    try:
+        assert v.port == port
+        assert f"live viewer at http://localhost:{port}/" in \
+            capsys.readouterr().out
+        import urllib.request
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/state.json",
+                                    timeout=10) as r:
+            state = json.loads(r.read())
+        assert {t["kf"] for t in state["trajectory"]} == \
+            set(range(res["n_keyframes"]))
+    finally:
+        v.close()
+
+
+def test_cli_device_split_parallel(capsys, monkeypatch):
+    """``--device_split --parallel_run`` with one device of the type
+    (the CPU): JAX's fallback line, and mapping stays on that device
+    while its NGP iterations advance beside tracking."""
+    built = _small_nerf(monkeypatch)
+    res = slam_demo.run(slam_demo.parse_args(
+        TINY + ["--fusion", "nerf", "--device_split", "--parallel_run"]))
+    assert ("device_split requested but only one device visible; falling "
+            "back to shared-device scheduling") in capsys.readouterr().out
+    fusion, _ = built[0]
+    assert fusion.device == torch.device("cpu") and fusion.iteration > 0
+    assert res["n_keyframes"] > 8
+
+
+def test_cli_edge_shards(capsys, monkeypatch):
+    """``--edge_shards 2``: the tracker splits its 64 + 64 edge slots into
+    2 shards on the CPU and tracks the room."""
+    built = []
+    build = slam_demo.build_frontend
+    monkeypatch.setattr(slam_demo, "build_frontend", lambda *a: built.append(
+        build(*a)) or built[-1])
+    res = _run(capsys, TINY + ["--fusion", "none", "--edge_shards", "2"])
+    assert built[0].cfg.edge_shards == 2
+    assert res["n_keyframes"] > 8 and np.isfinite(res["ate_rmse_m"])
+
+
+def test_cli_edge_shards_must_divide():
+    """``--edge_shards 5`` does not divide the 64 edge slots: the tracker
+    raises, where JAX's asserts."""
+    with pytest.raises(ValueError,
+                       match="e_active/e_inactive must divide edge_shards=5"):
+        slam_demo.run(slam_demo.parse_args(TINY + ["--edge_shards", "5"]))
 
 
 def test_cli_profile_writes_a_trace(capsys, monkeypatch, tmp_path):

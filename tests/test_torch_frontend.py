@@ -308,3 +308,38 @@ def test_last_frame_rejected_as_keyframe_still_terminates(weights,
     assert outs[6] is not None and outs[6]["is_last_frame"]
     assert outs[6]["viz_count"] == tf.kf_idx + 1
     assert torch.isfinite(outs[6]["cam0_poses"]).all()
+
+
+def test_has_enough_motion_matches_jax(weights):
+    """From the same state after the warm-up, each further frame's motion
+    test against the last keyframe: the port's magnitude within 1e-3
+    relative of JAX's, and the same decision at thresholds 10% either
+    side of it."""
+    jparams, tnet, frames = weights
+    cfg = dict(SMALL, motion_filter_thresh=-1.0, keyframe_thresh=-1.0)
+    jf = _JaxF32(jparams, jfe.FrontendConfig(**cfg), (H, W))
+    tf = tfe.RaftVisualFrontend(tnet, tfe.FrontendConfig(**cfg), (H, W),
+                                device="cpu")
+    for k, pkt in enumerate(frames[:6]):
+        jf(k, pkt)
+    _copy_state(jf, tf)
+    for pkt in frames[6:]:
+        img = pkt["images"][..., :3]
+        feat_j = jf.net.apply(jf.params, jf._normalize_dev(
+            jnp.asarray(img)), method=JaxDroidNet.features)[0]
+        feat_t = tf.net.features(tf._normalize(torch.from_numpy(
+            np.ascontiguousarray(img))))[0]
+        st = jf.state
+        mag_j = float(jf._motion_mag(
+            jf.params, st.features[jf.last_kf_idx].astype(jnp.float32),
+            feat_j, st.contexts[jf.last_kf_idx],
+            st.cst_contexts[jf.last_kf_idx]))
+        mag_t = float(tf._motion_mag(feat_t, tf.last_kf_idx))
+        assert abs(mag_t - mag_j) <= 1e-3 * mag_j, (mag_t, mag_j)
+        for f in (0.9, 1.1):
+            for fe in (jf, tf):
+                fe.cfg = dataclasses.replace(fe.cfg,
+                                             motion_filter_thresh=f * mag_j)
+            want = jf.has_enough_motion(feat_j)
+            assert want == (f < 1)
+            assert tf.has_enough_motion(feat_t) == want

@@ -170,3 +170,35 @@ def test_build_pyramid_bf16_padded_rows_match():
         assert a.shape[-2] % 8 == 0
         assert b.dtype == torch.bfloat16
         _close(a, b, rtol=2 ** -8, atol=1e-6)
+
+
+def test_iproj_points_match():
+    rng = np.random.RandomState(5)
+    poses = _poses(rng, 3)
+    disps = rng.uniform(0.2, 2.0, (3, 5, 6)).astype(np.float32)
+    intr = np.tile(np.array([[5.0, 5.5, 3.0, 2.5]], np.float32), (3, 1))
+    _close(tcam.iproj_points(torch.from_numpy(poses),
+                             torch.from_numpy(disps),
+                             torch.from_numpy(intr)),
+           jcam.iproj_points(jnp.asarray(poses), jnp.asarray(disps),
+                             jnp.asarray(intr)))
+
+
+@pytest.mark.parametrize("name", ["lookup_level_patch",
+                                  "lookup_level_blocks"])
+def test_lookup_level_gather_layouts_match(name):
+    """The JAX package's TPU gather layouts of the one-level lookup, in
+    plain torch: equal to JAX's and to lookup_level within f32 rounding,
+    on tests/test_corr.py's inputs plus windows entirely outside."""
+    rng = np.random.RandomState(7)
+    E, H1, W1, H2, W2 = 3, 6, 7, 9, 11
+    vol = rng.randn(E, H1, W1, H2, W2).astype(np.float32)
+    coords = (rng.rand(E, H1, W1, 2) * np.array([W2 + 2, H2 + 2])
+              - 1.5).astype(np.float32)
+    coords[0, 0, :3] = [[-30.0, 50.0], [40.0, -20.0], [10.6, 8.4]]
+    got = getattr(tcorr, name)(torch.from_numpy(vol),
+                               torch.from_numpy(coords), 3)
+    _close(got, getattr(jcorr, name)(jnp.asarray(vol), jnp.asarray(coords),
+                                     3), atol=1e-4)
+    _close(got, tcorr.lookup_level(torch.from_numpy(vol),
+                                   torch.from_numpy(coords), 3), atol=1e-4)

@@ -42,7 +42,11 @@ REACHED = ("nerf_slam_tpu_torch.slam.imu",
            "nerf_slam_tpu_torch.solver.ba", "nerf_slam_tpu_torch.solver.schur",
            "nerf_slam_tpu_torch.models.training",
            "nerf_slam_tpu_torch.models.weights",
-           "nerf_slam_tpu_torch.cli.train_droid_synthetic")
+           "nerf_slam_tpu_torch.cli.train_droid_synthetic",
+           "nerf_slam_tpu_torch.parallel.tracking",
+           "nerf_slam_tpu_torch.parallel.mapping",
+           "nerf_slam_tpu_torch.gui.headless",
+           "nerf_slam_tpu_torch.gui.viewer")
 
 
 def test_port_imports_no_jax():
@@ -51,7 +55,7 @@ def test_port_imports_no_jax():
     counts, walked = out.stdout.strip().split("\n")
     assert set(REACHED) <= set(walked.split()), walked
     n, before, after = counts.split(" ", 2)
-    assert int(n) >= 37, out.stdout          # every module was imported
+    assert int(n) >= 65, out.stdout          # every module was imported
     assert before == "[]", before            # the interpreter started clean
     assert after == "[]", after
 
@@ -60,6 +64,6 @@ def test_port_imports_no_optional_reader():
     out = _probe(OPTIONAL)
     assert out.returncode == 0, out.stderr
     n, before, after = out.stdout.strip().split("\n")[0].split(" ", 2)
-    assert int(n) >= 49, out.stdout          # the readers' modules too
+    assert int(n) >= 65, out.stdout          # the readers' modules too
     assert before == "[]", before
     assert after == "[]", after
