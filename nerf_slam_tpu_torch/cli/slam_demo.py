@@ -17,7 +17,10 @@ and ``vio_relinearized``.
 reads that format (EuRoC at ``--height`` x ``--width``, with ``--stereo``
 rectified to a shared pinhole); ``--profile`` writes a ``torch.profiler``
 trace of the run (``utils/runtime.profile_trace``: CPU ranges of the
-thread that runs the stages, CUDA kernels of every thread).  It prints
+thread that runs the stages, CUDA kernels of every thread, and the
+program's spans of every stage on the kernels' timeline: the device
+lock's wait and hold, the tracker's frame, ingest, update iterations, BA
+and export, the map's steps, each with its sync count).  It prints
 one JSON line: wall time, keyframes and keyframes/s, each stage's mean
 spin time, ATE-RMSE against ground truth and, under ``--eval``, the map's
 evaluation row.

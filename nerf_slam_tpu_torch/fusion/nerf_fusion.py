@@ -23,6 +23,12 @@ z-depth in normalized units, so supervised depths compare directly.
 Each train step draws its rays and samples (:meth:`NerfFusion.draw_batch`)
 apart from the loss (:meth:`NerfFusion.loss`), so a test can hand both
 this package and the JAX one the same random numbers.
+
+Spans of ``utils.runtime`` (recorded while a profiler records):
+``map.reset`` (the field and its tables drawn), ``map.ingest`` (a packet
+into the training set), ``map.step`` (a train step, with its
+``iteration``) over ``map.draw``, ``map.forward`` (the loss),
+``map.backward`` and ``map.optim``.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry import se3
+from ..utils import runtime
 from ..utils.evaluation import to_numpy
 from .ngp import (NGPConfig, draw_ray_samples, init_ngp, occupancy_grid,
                   query, ray_occ_interval, render_rays, sample_along_rays,
@@ -153,6 +160,10 @@ class NerfFusion:
 
     def reset(self):
         """Fresh field, optimizer, training set and generators."""
+        with runtime.span("map.reset"):
+            self._fresh_state()
+
+    def _fresh_state(self):
         cfg, dev = self.cfg, self.device
         init_gen = torch.Generator().manual_seed(self._seed)
         self.field = init_ngp(cfg.ngp, generator=init_gen).to(dev)
@@ -271,7 +282,8 @@ class NerfFusion:
             return False
         if packet.get("is_last_frame") and "viz_idx" not in packet:
             return True
-        self.update_training_images(*self._packet_arrays(packet))
+        with runtime.span("map.ingest"):
+            self.update_training_images(*self._packet_arrays(packet))
         return bool(packet.get("is_last_frame", False))
 
     def fuse_and_fit(self, packet: Optional[Dict[str, Any]],
@@ -368,22 +380,32 @@ class NerfFusion:
         gets a zero gradient, as JAX's product of the gradient with 0 gives
         it, without the backward through the rays that computes one.
         Returns the loss as a device scalar."""
+        with runtime.span("map.step", iteration=self.iteration):
+            return self._step(batch)
+
+    def _step(self, batch: Optional[Batch]) -> torch.Tensor:
         cfg = self.cfg
         pose_on, field_on, mult = self._schedule(self.iteration)
-        batch = self.draw_batch() if batch is None else batch
+        if batch is None:
+            with runtime.span("map.draw"):
+                batch = self.draw_batch()
         self.opt.zero_grad(set_to_none=True)
         self.pose_deltas.grad = None
-        loss, _, _ = self.loss(batch, depth_mult=mult,
-                               pose_grad=pose_on > 0)
-        loss.backward()
-        _set_lr(self.opt, self._lr * field_on)
-        self.opt.step()
-        if cfg.optimize_extrinsics:
-            if self.pose_deltas.grad is None:
-                self.pose_deltas.grad = torch.zeros_like(self.pose_deltas)
-            self.pose_deltas.grad[0] = 0.0
-            _set_lr(self.pose_opt, cfg.extrinsics_lr * pose_on)
-            self.pose_opt.step()
+        with runtime.span("map.forward"):
+            loss, _, _ = self.loss(batch, depth_mult=mult,
+                                   pose_grad=pose_on > 0)
+        with runtime.span("map.backward"):
+            loss.backward()
+        with runtime.span("map.optim"):
+            _set_lr(self.opt, self._lr * field_on)
+            self.opt.step()
+            if cfg.optimize_extrinsics:
+                if self.pose_deltas.grad is None:
+                    self.pose_deltas.grad = torch.zeros_like(
+                        self.pose_deltas)
+                self.pose_deltas.grad[0] = 0.0
+                _set_lr(self.pose_opt, cfg.extrinsics_lr * pose_on)
+                self.pose_opt.step()
         return loss.detach()
 
     def fit_volume(self, iters: Optional[int] = None):

@@ -23,6 +23,9 @@ The volume lives on the mapping device and keeps the JAX package's
 channel-major (3, G, G, G) color at the public API.  The JAX integration
 returns a new volume (its input is donated); here :meth:`_integrate`
 updates the volume's tensors in place and returns the same volume.
+
+A packet's integration runs inside the span ``map.tsdf`` of
+``utils.runtime`` (recorded while a profiler records).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..utils import runtime
 from ..utils.evaluation import to_numpy
 
 
@@ -211,19 +215,22 @@ class TsdfFusion:
             return False
         if packet.get("is_last_frame") and "viz_idx" not in packet:
             return True
-        n = int(packet.get("viz_count", np.asarray(packet["viz_idx"]).shape[0]))
-        poses7 = self._tensor(packet["cam0_poses"])[:n]
-        w2cs = se3.matrix(poses7)
-        idepths = self._tensor(packet["cam0_idepths_up"])[:n]
-        covs = self._tensor(packet["cam0_depths_cov_up"])[:n]
-        imgs = torch.as_tensor(packet["cam0_images"], device=self.device)[:n]
-        intr = self._tensor(packet["cam0_intrinsics"])[:n] * 8.0
-        depths = torch.where(idepths > 1e-6,
-                             1.0 / torch.clamp(idepths, min=1e-6),
-                             torch.zeros_like(idepths))
-        for i in range(n):
-            self.integrate_frame(w2cs[i], intr[i], depths[i], covs[i],
-                                 imgs[i])
+        with runtime.span("map.tsdf"):
+            n = int(packet.get("viz_count",
+                               np.asarray(packet["viz_idx"]).shape[0]))
+            poses7 = self._tensor(packet["cam0_poses"])[:n]
+            w2cs = se3.matrix(poses7)
+            idepths = self._tensor(packet["cam0_idepths_up"])[:n]
+            covs = self._tensor(packet["cam0_depths_cov_up"])[:n]
+            imgs = torch.as_tensor(packet["cam0_images"],
+                                   device=self.device)[:n]
+            intr = self._tensor(packet["cam0_intrinsics"])[:n] * 8.0
+            depths = torch.where(idepths > 1e-6,
+                                 1.0 / torch.clamp(idepths, min=1e-6),
+                                 torch.zeros_like(idepths))
+            for i in range(n):
+                self.integrate_frame(w2cs[i], intr[i], depths[i], covs[i],
+                                     imgs[i])
         return bool(packet.get("is_last_frame", False))
 
     # ------------------------------------------------------------------

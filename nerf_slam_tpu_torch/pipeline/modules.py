@@ -3,17 +3,33 @@
 Equivalents of NeRF-SLAM's DataModule / SlamModule / FusionModule /
 GuiModule wrappers.  The SLAM, fusion and GUI stages hold
 ``utils.runtime.DEVICE_LOCK`` around their device work when they run as
-threads (looked up at each spin, so a caller may swap in the no-op lock).
+threads (looked up at each spin, so a caller may swap in the no-op lock),
+inside the spans ``lock.wait`` (acquiring it) and ``lock.hold``.
 """
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 from ..fusion.nerf_fusion import MASK_TYPES
 from ..slam.meta_slam import SLAM
 from ..utils import runtime
 from .module import PipelineModule
+
+
+@contextmanager
+def _device_lock():
+    """``runtime.DEVICE_LOCK`` (looked up now) around the block, its
+    acquisition in a ``lock.wait`` span and the block in ``lock.hold``."""
+    lock = runtime.DEVICE_LOCK
+    with runtime.span("lock.wait"):
+        lock.acquire()
+    try:
+        with runtime.span("lock.hold"):
+            yield
+    finally:
+        lock.release()
 
 
 class DataModule(PipelineModule):
@@ -57,7 +73,7 @@ class SlamModule(PipelineModule):
             packet = packet["data"]
         if packet is None:
             return None
-        with runtime.DEVICE_LOCK:
+        with _device_lock():
             if self._is_slam:
                 _, out = self.frontend(packet)
             else:
@@ -130,7 +146,7 @@ class FusionModule(PipelineModule):
         if isinstance(packet, dict) and ("slam" in packet
                                          or "gui" in packet):
             pkt, gui_pkt = packet.get("slam"), packet.get("gui")
-        with runtime.DEVICE_LOCK:
+        with _device_lock():
             if gui_pkt is not None:
                 for cmd in gui_pkt.get("gui_commands", []):
                     self.handle_command(cmd)
@@ -164,7 +180,7 @@ class GuiModule(PipelineModule):
     def spin_once(self, packet):
         pkt = packet.get("slam") if isinstance(packet, dict) else packet
         if pkt is not None:
-            with runtime.DEVICE_LOCK:
+            with _device_lock():
                 self.gui.visualize(pkt)
             if pkt.get("is_last_frame"):
                 self.shutdown_module()

@@ -24,10 +24,20 @@ only if the map's multi-view depth consistency does not fall.
 The JAX package fuses these steps into single jitted programs to save
 round trips to a remote TPU; this port runs them eagerly, in the same
 order, and syncs to the host where a decision needs a value.
+
+The steps run inside spans of ``utils.runtime`` (recorded while a
+profiler records): ``track.frame`` (a call, with the frame's ``k`` and
+the tracker's ``session``, which each ``reset`` renews) over
+``track.ingest`` (upload, encoders; inside it ``track.motion``, the
+magnitude and its read), ``track.graph`` (graph edits, edge-slot sync,
+the round's plan and shards), ``track.iter`` (an update iteration;
+inside it ``track.dba``), ``track.kf_dist``, ``track.export`` (inside it
+``track.cov``) and ``track.viz_out``; and ``track.reset``.
 """
 from __future__ import annotations
 
 import copy
+import itertools
 from dataclasses import dataclass, fields
 from typing import Any, Dict, Optional, Tuple
 
@@ -40,7 +50,11 @@ from ..ops import corr, corr_lookup
 from ..ops.segment import reduce_in_order
 from ..parallel.tracking import placement, shard_devices, shard_plan
 from ..solver import dba
+from ..utils import runtime
 from . import graph as graphlib
+
+# the trackers' sessions, numbered across the process
+_SESSIONS = itertools.count(1)
 
 
 @dataclass(frozen=True)
@@ -226,7 +240,12 @@ class RaftVisualFrontend:
     # state
     # ------------------------------------------------------------------
     def reset(self):
-        """Fresh tracking state on the same instance."""
+        """Fresh tracking state on the same instance: a new session."""
+        self.session = next(_SESSIONS)
+        with runtime.span("track.reset", session=self.session):
+            self._fresh_state()
+
+    def _fresh_state(self):
         cfg, dev = self.cfg, self.device
         B, H, W, h, w = cfg.buffer, self.H, self.W, self.h, self.w
         Ea, Ei = cfg.e_active, cfg.e_inactive
@@ -309,9 +328,10 @@ class RaftVisualFrontend:
         return torch.linalg.norm(delta, dim=-1).mean()
 
     def _ingest(self, k: int, slot: int, batch: Dict[str, Any],
-                with_motion: bool) -> Optional[torch.Tensor]:
+                with_motion: bool) -> Optional[float]:
         """Encode frame k, compute its motion magnitude against the last
-        keyframe (before the store), and store it into ``slot``.  A slot
+        keyframe (before the store; read on the host), and store it into
+        ``slot``.  A slot
         whose frame is then rejected simply holds a candidate that the
         next frame overwrites."""
         dev, st, cfg = self.device, self.state, self.cfg
@@ -320,7 +340,10 @@ class RaftVisualFrontend:
         image_norm = self._normalize(img)
         f = self.net.features(image_norm)[0]
         c, ci = self.net.context(image_norm)
-        mag = self._motion_mag(f, self.last_kf_idx) if with_motion else None
+        mag = None
+        if with_motion:
+            with runtime.span("track.motion"):
+                mag = float(self._motion_mag(f, self.last_kf_idx))
         if cfg.stereo:
             # the right camera needs features only (no context)
             right = batch.get("images_right")
@@ -659,37 +682,40 @@ class RaftVisualFrontend:
                                 on.sum().to(torch.int32).reshape(1))
                    for sh, on in zip(shards, ons)]
         for _ in range(n):
-            hiddens = []
-            for s, sh in enumerate(shards):
-                dev = sh.plan.ii.device
-                coords1, _, _ = camera.projective_transform(
-                    c["poses"].to(dev), c["disps"].to(dev),
-                    st.intrinsics.to(dev), sh.plan.ii[:ea], sh.plan.jj[:ea],
-                    stereo_rel=None if self._rig is None
-                    else self._rig.to(dev))
-                flow = c["flow"][s]
-                motion = torch.cat([coords1 - self._coords0.to(dev),
-                                    flow - coords1], -1).clamp(-64.0, 64.0)
-                cvals = lookups[s](coords1.contiguous()).to(torch.bfloat16)
-                hidden2, delta, weight = sh.net.update(
-                    c["hidden"][s], None, cvals, motion.to(torch.bfloat16),
-                    gates_inp=sh.gates)
-                on = ons[s]
-                c["flow"][s] = torch.where(on, coords1 + delta, flow)
-                c["flow_w"][s] = torch.where(on, weight, c["flow_w"][s])
-                c["hidden"][s] = torch.where(on, hidden2, c["hidden"][s])
-                hiddens.append(hidden2)
-            eta = self.net.eta(hiddens, segs, K)
-            c["damping"] = dba.kx_scatter(c["damping"], plan.kx,
-                                          plan.k_valid, eta)
-            eta_k = cfg.damping_scale * c["damping"][plan.kx] \
-                + cfg.damping_offset
-            edges = self._edge_shards(c, shards)
-            c["poses"], c["disps"] = dba.dba_iterations(
-                c["poses"], c["disps"], st.intrinsics, edges[0].targets,
-                edges[0].weights, eta_k, sens_k, plan, iters=cfg.gn_iters,
-                ep=cfg.ep, lm=cfg.lm, stereo_rel=self._rig,
-                shards=edges if len(edges) > 1 else None)
+            with runtime.span("track.iter"):
+                hiddens = []
+                for s, sh in enumerate(shards):
+                    dev = sh.plan.ii.device
+                    coords1, _, _ = camera.projective_transform(
+                        c["poses"].to(dev), c["disps"].to(dev),
+                        st.intrinsics.to(dev), sh.plan.ii[:ea],
+                        sh.plan.jj[:ea], stereo_rel=None if self._rig is None
+                        else self._rig.to(dev))
+                    flow = c["flow"][s]
+                    motion = torch.cat([coords1 - self._coords0.to(dev),
+                                        flow - coords1], -1).clamp(-64.0, 64.0)
+                    cvals = lookups[s](coords1.contiguous()).to(torch.bfloat16)
+                    hidden2, delta, weight = sh.net.update(
+                        c["hidden"][s], None, cvals, motion.to(torch.bfloat16),
+                        gates_inp=sh.gates)
+                    on = ons[s]
+                    c["flow"][s] = torch.where(on, coords1 + delta, flow)
+                    c["flow_w"][s] = torch.where(on, weight, c["flow_w"][s])
+                    c["hidden"][s] = torch.where(on, hidden2, c["hidden"][s])
+                    hiddens.append(hidden2)
+                eta = self.net.eta(hiddens, segs, K)
+                c["damping"] = dba.kx_scatter(c["damping"], plan.kx,
+                                              plan.k_valid, eta)
+                eta_k = cfg.damping_scale * c["damping"][plan.kx] \
+                    + cfg.damping_offset
+                edges = self._edge_shards(c, shards)
+                with runtime.span("track.dba"):
+                    c["poses"], c["disps"] = dba.dba_iterations(
+                        c["poses"], c["disps"], st.intrinsics,
+                        edges[0].targets, edges[0].weights, eta_k, sens_k,
+                        plan, iters=cfg.gn_iters, ep=cfg.ep, lm=cfg.lm,
+                        stereo_rel=self._rig,
+                        shards=edges if len(edges) > 1 else None)
 
     def _commit_light(self, c: dict):
         st, ed = self.state, self.edges
@@ -713,14 +739,15 @@ class RaftVisualFrontend:
             eta_k = cfg.damping_scale * c["damping"][plan.kx] \
                 + cfg.damping_offset
             sens_k = st.idepths_sensed[plan.kx]
-            (Hd, vd, Ehat, C, wv), blocks = dba.sharded_system(
-                poses, disps, st.intrinsics, edges, plan, eta_k, sens_k,
-                self._rig)
-            eb = (blocks[2] if cfg.schur_impl == "sparse"
-                  and len(edges) == 1 else None)
-            _, _, L, Q = dba.solve_system(Hd, vd, Ehat, C, wv, plan, cfg.ep,
-                                          cfg.lm, E_blocks=eb)
-            pose_cov_p, z_cov = dba.covariances(L, Ehat, Q, plan)
+            with runtime.span("track.cov"):
+                (Hd, vd, Ehat, C, wv), blocks = dba.sharded_system(
+                    poses, disps, st.intrinsics, edges, plan, eta_k, sens_k,
+                    self._rig)
+                eb = (blocks[2] if cfg.schur_impl == "sparse"
+                      and len(edges) == 1 else None)
+                _, _, L, Q = dba.solve_system(Hd, vd, Ehat, C, wv, plan,
+                                              cfg.ep, cfg.lm, E_blocks=eb)
+                pose_cov_p, z_cov = dba.covariances(L, Ehat, Q, plan)
             z_cov = z_cov.reshape(K, h, w)
         else:
             pose_cov_p = 1e-4 * torch.eye(6, device=self.device).repeat(
@@ -787,12 +814,13 @@ class RaftVisualFrontend:
         cfg, g, st = self.cfg, self.graph, self.state
         if g.n_edges == 0:
             return None
-        kf0 = max(0, int(g.ii.min()))
-        kf1 = max(int(g.ii.max()), int(g.jj.max())) + 1
-        self._flush_pending()
+        with runtime.span("track.graph"):
+            kf0 = max(0, int(g.ii.min()))
+            kf1 = max(int(g.ii.max()), int(g.jj.max())) + 1
+            self._flush_pending()
+            plan = self._plan(use_inactive, kf0, kf1)
+            shards = self._shards(plan)
         ed = self.edges
-        plan = self._plan(use_inactive, kf0, kf1)
-        shards = self._shards(plan)
         disps = st.idepths
         if seed_sensed_slot >= 0:
             sensed = st.idepths_sensed[seed_sensed_slot]
@@ -809,17 +837,20 @@ class RaftVisualFrontend:
         self._iterate(n_iters, c, plan, shards)
         g.age += n_iters
         da, db = kf_dist_pair if kf_dist_pair is not None else (0, 0)
-        kf_dist = camera.frame_distance_bidirectional(
-            c["poses"], c["disps"], st.intrinsics,
-            torch.tensor([da], device=self.device),
-            torch.tensor([db], device=self.device), cfg.beta)[0]
-        self.last_kf_dist = kf_dist
+        with runtime.span("track.kf_dist"):
+            kf_dist = camera.frame_distance_bidirectional(
+                c["poses"], c["disps"], st.intrinsics,
+                torch.tensor([da], device=self.device),
+                torch.tensor([db], device=self.device), cfg.beta)[0]
+            self.last_kf_dist = kf_dist
+            close = two_phase and float(kf_dist) < cfg.keyframe_thresh
+        if close:
+            self._commit_light(c)
+            return False
         if two_phase:
-            if float(kf_dist) < cfg.keyframe_thresh:
-                self._commit_light(c)
-                return False
             self._iterate(n_iters2, c, plan, shards)
-        self._export(c, plan, shards, seed_next)
+        with runtime.span("track.export"):
+            self._export(c, plan, shards, seed_next)
         self.viz_idx[kf0:self.kf_idx + 1] = True
         return True
 
@@ -836,6 +867,10 @@ class RaftVisualFrontend:
         """Process frame k.  batch: images (H, W, 3) uint8, intrinsics
         (4,), optional poses (4, 4), depths (H, W), t_cams,
         is_last_frame.  Returns a viz packet dict or None."""
+        with runtime.span("track.frame", k=k, session=self.session):
+            return self._track(k, batch)
+
+    def _track(self, k: int, batch: Dict[str, Any]):
         cfg = self.cfg
         if cfg.rgbd and batch.get("depths") is not None \
                 and batch.get("idepths_sensed") is None:
@@ -848,7 +883,8 @@ class RaftVisualFrontend:
                 d > 1e-3, 1.0 / np.maximum(d, 1e-3), 0.0)
         if self.last_k is None:
             assert k == 0 and self.kf_idx == 0
-            self._ingest(k, 0, batch, with_motion=False)
+            with runtime.span("track.ingest"):
+                self._ingest(k, 0, batch, with_motion=False)
             self.last_k = k
             self.last_kf_idx = 0
             self.kf_idx_to_f_idx[0] = k
@@ -859,9 +895,10 @@ class RaftVisualFrontend:
 
         assert self.kf_idx < cfg.buffer
         with_motion = cfg.motion_filter_thresh >= 0
-        mag = self._ingest(k, self.kf_idx, batch, with_motion)
+        with runtime.span("track.ingest"):
+            mag = self._ingest(k, self.kf_idx, batch, with_motion)
         if with_motion:
-            self.last_motion_mag = float(mag)
+            self.last_motion_mag = mag
             if not self.last_motion_mag > cfg.motion_filter_thresh:
                 if batch.get("is_last_frame"):
                     self.kf_idx -= 1
@@ -875,7 +912,8 @@ class RaftVisualFrontend:
             if self.kf_idx >= cfg.keyframe_warmup:
                 self._initialize()
         elif not self._update_keyframe():
-            self.rm_keyframe(self.kf_idx - 1)
+            with runtime.span("track.graph"):
+                self.rm_keyframe(self.kf_idx - 1)
             if batch.get("is_last_frame"):
                 # the sequence ends on a rejected keyframe: the newest
                 # keyframe now sits in slot kf_idx - 1 (the JAX tracker
@@ -899,10 +937,13 @@ class RaftVisualFrontend:
 
     def _initialize(self):
         cfg, B = self.cfg, self.cfg.buffer
-        self.add_neighborhood_factors(0, self.kf_idx, radius=3)
+        with runtime.span("track.graph"):
+            self.add_neighborhood_factors(0, self.kf_idx, radius=3)
         self.update(n_iters=8)
-        self.add_proximity_factors(0, 0, rad=2, nms=2,
-                                   thresh=cfg.frontend_thresh, remove=False)
+        with runtime.span("track.graph"):
+            self.add_proximity_factors(0, 0, rad=2, nms=2,
+                                       thresh=cfg.frontend_thresh,
+                                       remove=False)
         self.update(n_iters=8)
         st, kf, nxt = self.state, self.kf_idx, self.kf_idx + 1
         if nxt < B:
@@ -913,20 +954,22 @@ class RaftVisualFrontend:
             st.intrinsics[nxt] = st.intrinsics[kf]
         self.is_initialized = True
         self.viz_idx[:kf + 1] = True
-        self.rm_factors(self.graph.ii < (cfg.keyframe_warmup - 4),
-                        store=True)
+        with runtime.span("track.graph"):
+            self.rm_factors(self.graph.ii < (cfg.keyframe_warmup - 4),
+                            store=True)
 
     def _update_keyframe(self) -> bool:
         """The per-keyframe round (visual_frontend.py:596-640); False when
         the new keyframe is rejected as too close to the previous one."""
         cfg = self.cfg
-        if self.graph.n_edges:
-            self.rm_factors(self.graph.age > cfg.max_age, store=True)
-        self.add_proximity_factors(
-            kf0=self.kf_idx - 4,
-            kf1=max(self.kf_idx + 1 - cfg.frontend_window, 0),
-            rad=cfg.frontend_radius, nms=cfg.frontend_nms,
-            thresh=cfg.frontend_thresh, remove=True)
+        with runtime.span("track.graph"):
+            if self.graph.n_edges:
+                self.rm_factors(self.graph.age > cfg.max_age, store=True)
+            self.add_proximity_factors(
+                kf0=self.kf_idx - 4,
+                kf1=max(self.kf_idx + 1 - cfg.frontend_window, 0),
+                rad=cfg.frontend_radius, nms=cfg.frontend_nms,
+                thresh=cfg.frontend_thresh, remove=True)
         nxt = self.kf_idx + 1
         seed_next = nxt if nxt < cfg.buffer else -1
         if cfg.keyframe_thresh >= 0:
@@ -1095,29 +1138,31 @@ class RaftVisualFrontend:
         """Viz packet (visual_frontend.py:1337-1391 contract).  Fields are
         device tensors padded to 16 (or buffer) rows by repeating the last
         selected keyframe; consumers slice with ``viz_count``."""
-        idx = np.nonzero(self.viz_idx)[0]
-        if idx.size == 0:
-            if batch.get("is_last_frame"):
-                return {"is_last_frame": True}
-            return None
-        V = 16 if idx.size <= 16 else self.cfg.buffer
-        sel = np.full(V, idx[-1], np.int64)
-        sel[:idx.size] = idx[:V]
-        idx = idx[:V]
-        st = self.state
-        s = torch.as_tensor(sel, device=self.device)
-        poses = st.cam_T_world[s]
-        values = (poses, st.gt_poses[s], st.gt_depths[s], se3.inv(poses),
-                  st.pose_cov[s], st.idepths[s], st.idepths_up[s],
-                  st.idepths_sensed[s], st.idepths_cov[s], st.depths_cov[s],
-                  st.depths_cov_up[s], st.images[s], st.intrinsics[s])
-        out = dict(zip(self._PACKET_FIELDS, values))
-        out.update({
-            "viz_idx": idx,
-            "viz_count": int(idx.size),
-            "kf_idx": self.kf_idx,
-            "kf_idx_to_f_idx": dict(self.kf_idx_to_f_idx),
-            "is_last_frame": bool(batch.get("is_last_frame", False)),
-        })
-        self.viz_idx[:] = False
-        return out
+        with runtime.span("track.viz_out"):
+            idx = np.nonzero(self.viz_idx)[0]
+            if idx.size == 0:
+                if batch.get("is_last_frame"):
+                    return {"is_last_frame": True}
+                return None
+            V = 16 if idx.size <= 16 else self.cfg.buffer
+            sel = np.full(V, idx[-1], np.int64)
+            sel[:idx.size] = idx[:V]
+            idx = idx[:V]
+            st = self.state
+            s = torch.as_tensor(sel, device=self.device)
+            poses = st.cam_T_world[s]
+            values = (poses, st.gt_poses[s], st.gt_depths[s],
+                      se3.inv(poses), st.pose_cov[s], st.idepths[s],
+                      st.idepths_up[s], st.idepths_sensed[s],
+                      st.idepths_cov[s], st.depths_cov[s],
+                      st.depths_cov_up[s], st.images[s], st.intrinsics[s])
+            out = dict(zip(self._PACKET_FIELDS, values))
+            out.update({
+                "viz_idx": idx,
+                "viz_count": int(idx.size),
+                "kf_idx": self.kf_idx,
+                "kf_idx_to_f_idx": dict(self.kf_idx_to_f_idx),
+                "is_last_frame": bool(batch.get("is_last_frame", False)),
+            })
+            self.viz_idx[:] = False
+            return out

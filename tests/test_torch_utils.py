@@ -391,15 +391,21 @@ def test_native_library_matches_its_plain_versions():
 
 
 def test_runtime_counters_and_trace(tmp_path):
-    snap = runtime.dispatch_snapshot()
-    runtime.count_dispatch("a")
-    runtime.count_dispatch("a")
-    runtime.count_sync("b")
-    d = runtime.dispatch_delta(snap)
-    assert d["dispatch"] == {"a": 2} and d["sync"] == {"b": 1}
-    assert d["dispatch_total"] == 2 and d["sync_total"] == 1
+    """The span recorder under ``profile_trace``: a span opened while the
+    profiler records is kept with its ids and sync count, and is written
+    into the Chrome trace on the CPU ops' clock, around its op."""
+    assert runtime.span("x") is runtime.span("y")     # the shared no-op
     with runtime.profile_trace(str(tmp_path / "trace")):
-        torch.ones(8).add_(1)
+        with runtime.span("outer", k=3) as span:
+            torch.ones(8).add_(1)
+    assert runtime.spans() == [span] and span.ids == {"k": 3}
+    assert span.syncs == 0 and span.t0 < span.t1
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
-    assert "aten::add_" in (tmp_path / "trace" / files[0]).read_text()
+    events = json.loads((tmp_path / "trace" / files[0]).read_text())[
+        "traceEvents"]
+    add, = [e for e in events if e.get("name") == "aten::add_"]
+    ours, = [e for e in events if e.get("cat") == "span"]
+    assert ours["name"] == "outer" and ours["args"]["k"] == 3
+    assert ours["ts"] <= add["ts"] \
+        and add["ts"] + add["dur"] <= ours["ts"] + ours["dur"]
