@@ -15,9 +15,14 @@ back-substitutes.  Conventions: DROID
 tangent [v, w], left retraction on cam_T_world; the gauge is fixed by
 freezing pose slot 0 when the window includes keyframe 0.  Depth
 covariances use the exact ``Q + Q^2 ||L^-1 E||^2`` marginal.
+
+On the card, :func:`dba_iterations` replays its Gauss-Newton steps as one
+CUDA graph (:class:`_SolveGraph`): the same kernels on the same shapes,
+launched by one call instead of some 1,500 host dispatches.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,6 +31,7 @@ import torch
 from ..geometry import camera, se3
 from ..ops.segment import reduce_in_order
 from ..ops.segment import segment_sum as seg_sum
+from ..utils import runtime
 
 
 class DBAPlan(NamedTuple):
@@ -370,7 +376,34 @@ def dba_iterations(poses, disps, intrinsics, targets, weights, eta,
     ``shards``: the edges split into :class:`EdgeShard` s (``targets`` and
     ``weights`` are then unused): each step reduces the shards' edge sums
     (:func:`sharded_system`) and solves with the dense Schur complement
-    on ``p``'s device.  Returns (poses, disps)."""
+    on ``p``'s device.  Returns (poses, disps).
+
+    A call whose tensors all lie on one CUDA device, none requiring
+    grad, without ``shards``, replays the steps as a CUDA graph captured
+    on the first call of its shapes (:class:`_SolveGraph`); every other
+    call runs them eagerly.  ``GRAPH_COUNTS`` counts both."""
+    flat = [poses, disps, intrinsics, targets, weights, eta, disps_sens,
+            *p, stereo_rel]
+    if shards is None and _on_one_card(flat):
+        key = (poses.device, iters, ep, lm,
+               tuple(None if t is None else (t.shape, t.dtype)
+                     for t in flat))
+        with _GRAPH_LOCK:
+            graph = _GRAPHS.get(key)
+            if graph is None:
+                with runtime.span("dba.capture"):
+                    graph = _GRAPHS[key] = _SolveGraph(flat, iters, ep, lm)
+            with runtime.span("dba.replay"):
+                return graph.replay(flat)
+    GRAPH_COUNTS["eager"] += 1
+    return _iterations(poses, disps, intrinsics, targets, weights, eta,
+                       disps_sens, p, iters, ep, lm, stereo_rel, shards)
+
+
+def _iterations(poses, disps, intrinsics, targets, weights, eta,
+                disps_sens, p: DBAPlan, iters: int, ep: float, lm: float,
+                stereo_rel, shards):
+    """The steps of :func:`dba_iterations`, launched op by op."""
     K = p.kx.shape[0]
     Hh, Ww = disps.shape[-2:]
     mask = (p.p_valid * (1 - p.p_fixed))[:, None]
@@ -395,3 +428,69 @@ def dba_iterations(poses, disps, intrinsics, targets, weights, eta,
         dnew = torch.clamp(disps[p.kx] + dz.reshape(K, Hh, Ww), min=0.001)
         disps = kx_scatter(disps, p.kx, p.k_valid, dnew)
     return poses, disps
+
+
+# ---------------------------------------------------------------------------
+# the solve as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# calls by path: graphs captured, graphs replayed, eager solves
+GRAPH_COUNTS = {"capture": 0, "replay": 0, "eager": 0}
+# one graph per device, iters, ep, lm and input shapes, kept for the
+# process: a tracker's shapes are fixed by its config, and the trackers of
+# successive sessions share their graph
+_GRAPHS: dict = {}
+_GRAPH_LOCK = threading.Lock()   # a graph's buffers serve one call at a time
+
+
+def _on_one_card(flat) -> bool:
+    """Whether a call with these tensors (and Nones) can replay a graph:
+    all on one CUDA device, none requiring grad."""
+    ts = [t for t in flat if t is not None]
+    dev = ts[0].device
+    return dev.type == "cuda" and all(
+        t.device == dev and not t.requires_grad for t in ts)
+
+
+class _SolveGraph:
+    """:func:`_iterations` captured as one CUDA graph for one set of
+    input shapes: static copies of the inputs (``flat``: the buffers,
+    the plan's fields, the rig; Nones stay None), the graph, and the
+    (poses, disps) it leaves in its own memory pool.
+
+    PyTorch's pattern: an eager run on the capture stream first, so that
+    the cuBLAS and cuSOLVER handles and workspaces exist, then the
+    capture (``thread_local``: other threads' CUDA calls do not break it;
+    in the pipeline the tracker captures holding ``DEVICE_LOCK``)."""
+
+    def __init__(self, flat, iters: int, ep: float, lm: float):
+        dev = flat[0].device
+        with torch.inference_mode(False):
+            self.static = [None if t is None else torch.empty_like(
+                t, memory_format=torch.contiguous_format) for t in flat]
+        self._copy_in(flat)
+        args = (*self.static[:7], DBAPlan(*self.static[7:-1]), iters, ep,
+                lm, self.static[-1], None)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _iterations(*args)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.out = _iterations(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        GRAPH_COUNTS["capture"] += 1
+
+    def _copy_in(self, flat):
+        torch._foreach_copy_([s for s in self.static if s is not None],
+                             [t for t in flat if t is not None])
+
+    def replay(self, flat):
+        """The solve of ``flat``'s values: copied in, replayed on the
+        current stream, (poses, disps) cloned out (the next replay
+        overwrites the graph's own)."""
+        self._copy_in(flat)
+        self.graph.replay()
+        GRAPH_COUNTS["replay"] += 1
+        return self.out[0].clone(), self.out[1].clone()

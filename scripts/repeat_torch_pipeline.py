@@ -9,9 +9,12 @@ give identical keyframes and poses.  This script shows it: it builds the
 336x640 production cell as ``chip_smoke.py`` does, runs ``DataModule ->
 SlamModule -> FusionModule -> EvalSink`` sequentially ``--runs`` times on
 fresh state and prints each run's ATE-RMSE, how many of its Cholesky
-factorizations failed, which frames became keyframes, the keyframe
-distance that each frame's update round tested against
-``keyframe_thresh`` (below it the newest keyframe is dropped) and a digest
+factorizations failed (those made by a Python call: on the card the dense
+BA replays a CUDA graph that factorizes without one, so only the graph's
+warm-up and capture and the covariances' solves count), which frames
+became keyframes, the keyframe distance that each frame's update round
+tested against ``keyframe_thresh`` (below it the newest keyframe is
+dropped) and a digest
 of the tracker's result (keyframe timestamps, poses, inverse depths),
 then how many distinct results the runs gave and the count above
 ``chip_smoke.py``'s ATE limit.  ``--kernel-phase`` runs ``chip_smoke.py``'s

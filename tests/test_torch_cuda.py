@@ -701,3 +701,131 @@ def test_device_peak_flops_names_the_card(dev):
     assert name == torch.cuda.get_device_name(0)
     if "H100 80GB HBM3" in name:
         assert bf16 == 989e12 and device_peak_flops("f32")[1] == 67e12
+
+
+# ---------------------------------------------------------------------------
+# the dense BA replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# the benchmark's tracker: edge slots, pose window, depth slots, buffer
+DBA_E, DBA_P, DBA_K, DBA_N = 96, 32, 40, 100
+# (kf0, kf1, earlier frames with edges into the window) per call: three
+# plans per case, each with padded edge and depth slots
+DBA_WINDOWS = {"gauge": [(0, 12, 0), (0, 16, 0), (0, 20, 0)],
+               "padded": [(30, 38, 2), (41, 47, 1), (52, 62, 3)],
+               "stereo": [(20, 30, 2), (33, 41, 1), (50, 59, 3)],
+               "sparse": [(10, 20, 2), (24, 33, 1), (60, 70, 3)]}
+
+
+def _dba_problem(dev, seed, h, w, window, case):
+    """A dense BA call at the tracker's padded shapes: a trajectory and
+    depths with flow targets from them plus noise, the starting point
+    perturbed, edges |i - j| <= 3 inside the window ``(kf0, kf1)`` and
+    from ``n_old`` earlier frames into it (stereo: an (i, i) edge a
+    frame), some sensed depths.  Returns dba_iterations' arguments."""
+    from nerf_slam_tpu_torch.geometry import camera, se3
+
+    kf0, kf1, n_old = window
+    rng = np.random.RandomState(seed)
+    xi = np.zeros((DBA_N, 6), np.float32)
+    xi[:, 0] = np.arange(DBA_N) * 0.05
+    xi += rng.randn(DBA_N, 6).astype(np.float32) * 0.01
+    gt = se3.exp(torch.from_numpy(xi)).to(dev)
+    disps_gt = torch.from_numpy(
+        rng.uniform(0.5, 1.5, (DBA_N, h, w)).astype(np.float32)).to(dev)
+    intr = torch.tensor([[0.9 * w, 0.9 * w, w / 2, h / 2]],
+                        device=dev).repeat(DBA_N, 1)
+    edges = [(i, j) for i in range(kf0 - n_old, kf1)
+             for j in range(kf0, kf1) if i != j and abs(i - j) <= 3]
+    rig = None
+    if case == "stereo":
+        edges += [(i, i) for i in range(kf0, kf1)]
+        rig = se3.exp(torch.tensor([-0.1, 0, 0, 0, 0, 0.0])).to(dev)
+    edges = edges[:DBA_E - 3]
+    ii = np.array([e[0] for e in edges])
+    jj = np.array([e[1] for e in edges])
+    p = dba.plan(ii, jj, kf0, kf1, DBA_E, DBA_P, DBA_K, device=dev)
+    if case == "sparse":
+        pa, pb, pv = dba.compute_pairs(
+            *(t.cpu().numpy() for t in (p.pi, p.pj, p.kk)),
+            p.edge_valid.cpu().numpy() > 0, pad_to=1024)
+        p = p._replace(**{k: torch.as_tensor(v, device=dev) for k, v in
+                          (("pair_a", pa.astype(np.int64)),
+                           ("pair_b", pb.astype(np.int64)),
+                           ("pair_valid", pv))})
+    else:
+        p = p._replace(pair_a=None, pair_b=None, pair_valid=None)
+    n = len(edges)
+    tgt, _, _ = camera.projective_transform(
+        gt, disps_gt, intr, p.ii[:n], p.jj[:n], stereo_rel=rig)
+    targets = torch.zeros((DBA_E, h, w, 2), device=dev)
+    targets[:n] = tgt + torch.from_numpy(
+        rng.randn(n, h, w, 2).astype(np.float32) * 0.05).to(dev)
+    weights = torch.zeros((DBA_E, h, w, 2), device=dev)
+    weights[:n] = torch.from_numpy(
+        rng.uniform(0.3, 1.0, (n, h, w, 2)).astype(np.float32)).to(dev)
+    pert = np.concatenate([rng.randn(DBA_N, 3) * 0.02,
+                           rng.randn(DBA_N, 3) * 0.01], -1)
+    poses = se3.retr(gt, torch.from_numpy(pert.astype(np.float32)).to(dev))
+    disps = disps_gt * torch.from_numpy(rng.uniform(
+        0.8, 1.2, (DBA_N, h, w)).astype(np.float32)).to(dev)
+    eta = torch.from_numpy(rng.uniform(
+        1e-3, 1e-2, (DBA_K, h, w)).astype(np.float32)).to(dev)
+    sens = disps_gt[p.kx] * (torch.arange(DBA_K, device=dev) % 3 == 0
+                             )[:, None, None]
+    return (poses, disps, intr, targets, weights, eta, sens, p), \
+        dict(iters=2, stereo_rel=rig)
+
+
+@pytest.mark.parametrize("case", ["gauge", "padded", "stereo", "sparse"])
+@pytest.mark.parametrize("h,w", [(48, 64), (43, 77)])
+def test_dba_graph_replay_equals_eager(dev, monkeypatch, case, h, w):
+    """dba_iterations on the card replays a CUDA graph of the eager
+    steps: over three calls whose plans and values differ, the poses and
+    inverse depths equal the eager solve's to the bit; one capture, a
+    replay on every call (the first included), no eager solve; a later
+    replay leaves an earlier call's returned tensors unchanged."""
+    monkeypatch.setattr(dba, "_GRAPHS", {})
+    before = dict(dba.GRAPH_COUNTS)
+    kept = []
+    for call, window in enumerate(DBA_WINDOWS[case]):
+        args, kw = _dba_problem(dev, 100 * call + h, h, w, window, case)
+        got = dba.dba_iterations(*args, **kw)
+        want = dba._iterations(*args, ep=0.1, lm=1e-4, shards=None, **kw)
+        assert all(torch.isfinite(t).all() for t in got)
+        assert (got[0] != args[0]).any()                     # a real step
+        for g, e in zip(got, want):
+            assert torch.equal(g, e)
+        kept.append((got, [t.clone() for t in got]))
+    for got, copy_ in kept:
+        assert all(torch.equal(a, b) for a, b in zip(got, copy_))
+    assert dba.GRAPH_COUNTS == dict(
+        before, capture=before["capture"] + 1,
+        replay=before["replay"] + len(DBA_WINDOWS[case]))
+    assert len(dba._GRAPHS) == 1
+
+
+@pytest.mark.parametrize("case", ["shards", "requires_grad"])
+def test_dba_graph_not_under_shards_or_grad(dev, monkeypatch, case):
+    """On the card, a call with edge shards or with an input that
+    requires grad runs the eager steps: no capture, the eager bits."""
+    monkeypatch.setattr(dba, "_GRAPHS", {})
+    args, kw = _dba_problem(dev, 7, 48, 64, DBA_WINDOWS["padded"][0],
+                            "padded")
+    args, kw["shards"] = list(args), None
+    if case == "requires_grad":
+        args[1] = args[1].clone().requires_grad_(True)
+    else:
+        p, half = args[7], DBA_E // 2
+        kw["shards"] = [dba.EdgeShard(p._replace(**{
+            k: getattr(p, k)[sl] for k in
+            ("ii", "jj", "pi", "pj", "kk", "edge_valid")}),
+            args[3][sl], args[4][sl])
+            for sl in (slice(0, half), slice(half, None))]
+    before = dict(dba.GRAPH_COUNTS)
+    got = dba.dba_iterations(*args, **kw)
+    want = dba._iterations(*args, ep=0.1, lm=1e-4, **kw)
+    assert dba.GRAPH_COUNTS == dict(before, eager=before["eager"] + 1)
+    assert not dba._GRAPHS
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)

@@ -207,6 +207,41 @@ def test_dba_iterations_sparse_match():
                                rtol=1e-4)
 
 
+
+def _two_shards(tp, tgt, wts):
+    """The edges as two EdgeShards of half the slots each."""
+    half = tp.ii.shape[0] // 2
+    return [tdba.EdgeShard(tp._replace(**{
+                k: getattr(tp, k)[sl] for k in
+                ("ii", "jj", "pi", "pj", "kk", "edge_valid")}),
+                tgt[sl], wts[sl])
+            for sl in (slice(0, half), slice(half, None))]
+
+
+@pytest.mark.parametrize("case", ["cpu", "shards", "requires_grad"])
+def test_dba_iterations_eager_off_the_card(case):
+    """Calls that cannot replay a CUDA graph (tensors on the CPU, the
+    edges in shards, an input that requires grad) take the eager path:
+    one more eager solve, no capture or replay, and the JAX package's
+    steps to the tolerance of the iterations test above."""
+    ii, jj, poses, disps, intr, tgt, wts, eta, sens = _graph(1)
+    jp, tp = _plans(ii, jj)
+    J, T = _both([poses, disps, intr, tgt, wts, eta, sens])
+    kw = {}
+    if case == "shards":
+        kw["shards"] = _two_shards(tp, T[3], T[4])
+    if case == "requires_grad":
+        T[0] = T[0].clone().requires_grad_(True)
+    before = dict(tdba.GRAPH_COUNTS)
+    pt, dt = tdba.dba_iterations(*T[:5], T[5], T[6], tp, iters=3, **kw)
+    assert tdba.GRAPH_COUNTS == dict(before, eager=before["eager"] + 1)
+    assert pt.requires_grad == (case == "requires_grad")
+    res = jdba.dba_iterations(*J[:5], J[5], J[6], jp, iters=3,
+                              compute_covariances=False)
+    np.testing.assert_allclose(_np(pt), _np(res.poses), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(_np(dt), _np(res.disps), atol=1e-4,
+                               rtol=1e-4)
+
 def test_kx_scatter_drops_padded_slots():
     buf = torch.arange(5.0)
     out = tdba.kx_scatter(buf, torch.tensor([3, 0, 0]),
