@@ -9,7 +9,8 @@ Numbers compared (each against its limit, in the configuration's
 - ``round_flow_px``: iterations of update rounds drawn from the seed,
   each replayed from the carry the program held before it, with features,
   contexts and pyramids from the frames (lookup #1, update operator): the
-  median pixel gap of the flow targets;
+  median pixel gap of the flow targets (with a stereo rig, the worse of
+  the stereo edges' median and the other edges');
 - ``dba_gap``: the same iterations' dense BA on the flow targets, weights
   and damping the program's update operator left: the median relative
   gap of the inverse depths;
@@ -21,6 +22,10 @@ Numbers compared (each against its limit, in the configuration's
   reference's gradient moves; ``ingest_gap``, a packet's views as
   training-set rows;
 - TSDF map: ``tsdf_gap`` (a packet's integration).
+
+The rig is the configuration's: a stereo rig's right views and rig pose,
+an RGB-D sensor's sensed inverse depths, each recomputed from the frames
+and the configuration, never read from the program.
 
 ``stand_in`` puts the reference in the program's place: ``"control"``
 one precision below the configuration's (float8 for the tracker's network
@@ -60,6 +65,10 @@ def compare(probes, cell, stand_in: Optional[str] = None
         ctrl = droid.load_net(weights, dev, quant=droid.fp8) if control \
             else None
         imgs = torch.as_tensor(cell.images, device=dev)
+        right = None if cell.images_right is None \
+            else torch.as_tensor(cell.images_right, device=dev)
+        depths = None if cell.depths is None \
+            else torch.as_tensor(cell.depths, device=dev)
     if tracker and probes.motion:
         gaps = []
         for p in probes.motion:
@@ -71,16 +80,20 @@ def compare(probes, cell, stand_in: Optional[str] = None
         out["motion_gap"] = max(gaps)
     if tracker and probes.rounds:
         tcfg = tracker_settings(cell)
+        stereo = tcfg["stereo_rel"] is not None
         flow, disp = [], []
         for cap in probes.rounds:
+            sensed = droid.sensed_idepths(cap, depths, tcfg)
             for before, after in cap["steps"]:
-                ref = droid.update_step(net, cap, before, imgs, cell.K, tcfg)
+                ref = droid.update_step(net, cap, before, imgs, cell.K, tcfg,
+                                        right)
                 prog = droid.update_step(ctrl, cap, before, imgs, cell.K,
-                                         tcfg) if control else after
-                flow.append(droid.flow_gap(cap, prog, ref))
-                ref = droid.dba_step(cap, before, after, cell.K, tcfg)
+                                         tcfg, right) if control else after
+                flow.append(droid.flow_gap(cap, prog, ref, stereo))
+                ref = droid.dba_step(cap, before, after, cell.K, tcfg, sensed)
                 prog = droid.dba_step(cap, before, after, cell.K, tcfg,
-                                      lower=True) if control else after
+                                      sensed, lower=True) \
+                    if control else after
                 disp.append(droid.disp_gap(cap, prog, ref))
         out["round_flow_px"] = max(flow)
         out["dba_gap"] = max(disp)
@@ -114,14 +127,19 @@ def compare(probes, cell, stand_in: Optional[str] = None
 
 
 def tracker_settings(cell) -> dict:
-    """The DBA's settings as the configuration and the weights' sidecar
-    state them (the reference reads them there, not from the program)."""
+    """The DBA's settings and the rig pose as the configuration and the
+    weights' sidecar state them (the reference reads them there, not from
+    the program): a right camera ``stereo_baseline_m`` along the left
+    one's x axis is cam1_T_cam0 = [-b, 0, 0, 0, 0, 0, 1]."""
     t = cell.config["tracker"]
     with open(str(WEIGHTS) + ".json") as f:
         meta = json.load(f)
+    b = t.get("stereo_baseline_m") if t.get("sensor") == "stereo" else None
     return {"dsf": 8, "gn_iters": t["gn_iters"], "ep": t["ep"],
             "lm": t["lm"], "damping_scale": float(meta["damping_scale"]),
-            "damping_offset": float(meta["damping_offset"])}
+            "damping_offset": float(meta["damping_offset"]),
+            "stereo_rel": None if b is None else torch.tensor(
+                [-float(b), 0.0, 0.0, 0.0, 0.0, 0.0, 1.0])}
 
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float],

@@ -8,12 +8,14 @@ for every seed.  So every seed sees the same room along the same orbit,
 in another order, with the same frame count, shapes and motion: the
 seed moves the work as little as a SLAM input can.  ``render`` returns
 host uint8 images, as a loader would hand them, and the world_T_cam
-ground-truth poses.
+ground-truth poses; on request also each frame's z-depth in metres (an
+RGB-D sensor's) and the right view of a stereo rig, the synthetic
+dataset's ``depths`` and ``images_right``.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,8 +75,11 @@ def _texture(p: torch.Tensor, axis: torch.Tensor, ph) -> torch.Tensor:
     return torch.clamp(rgb * shade[..., None], 0.0, 1.0)
 
 
-def _render_batch(c2w: torch.Tensor, K, h: int, w: int, ph) -> torch.Tensor:
-    """(n, 4, 4) float64 poses -> (n, h, w, 3) uint8 on their device."""
+def _render_batch(c2w: torch.Tensor, K, h: int, w: int, ph,
+                  depth: bool = False):
+    """(n, 4, 4) float64 poses -> (n, h, w, 3) uint8 on their device and,
+    with ``depth``, the (n, h, w) float32 z-depth (the ray parameter of
+    the hit: the camera rays have z = 1)."""
     dev, f64 = c2w.device, torch.float64
     v, u = torch.meshgrid(torch.arange(h, dtype=f64, device=dev) + 0.5,
                           torch.arange(w, dtype=f64, device=dev) + 0.5,
@@ -104,20 +109,44 @@ def _render_batch(c2w: torch.Tensor, K, h: int, w: int, ph) -> torch.Tensor:
             tmax = torch.where(better, s, tmax)
             axis = torch.where(better, ax, axis)
     pts = t[:, None, None, :] + tmax[..., None] * dirs
-    return (_texture(pts, axis, ph) * 255).to(torch.uint8)
+    rgb = (_texture(pts, axis, ph) * 255).to(torch.uint8)
+    return (rgb, tmax.to(torch.float32)) if depth else rgb
+
+
+class Frames(NamedTuple):
+    images: np.ndarray                   # (n, H, W, 3) uint8
+    poses: np.ndarray                    # (n, 4, 4) float32 world_T_cam
+    K: np.ndarray                        # (4,) float32 fx, fy, cx, cy
+    depths: Optional[np.ndarray] = None  # (n, H, W) float32 metres
+    images_right: Optional[np.ndarray] = None   # (n, H, W, 3) uint8
 
 
 def render(n_frames: int, height: int, width: int, fov_deg: float,
-           deg_per_frame: float, seed: int, device,
-           chunk: int = 16) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(images (n, H, W, 3) uint8 on the host, world_T_cam (n, 4, 4)
-    float32, intrinsics (4,) float32) of a sequence along the orbit."""
+           deg_per_frame: float, seed: int, device, chunk: int = 16,
+           depths: bool = False, baseline: Optional[float] = None
+           ) -> Frames:
+    """A sequence along the orbit, on the host.  ``depths``: each frame's
+    z-depth too; ``baseline`` (metres): the right view too, from each
+    pose moved by ``baseline`` along the camera's x axis."""
     K = intrinsics(height, width, fov_deg)
     poses = trajectory(n_frames, deg_per_frame, start_deg(seed))
     ph = LEGACY_PHASES
     c2w = torch.as_tensor(poses, dtype=torch.float64, device=device)
     out = torch.empty((n_frames, height, width, 3), dtype=torch.uint8)
+    depth = torch.empty((n_frames, height, width), dtype=torch.float32) \
+        if depths else None
+    right = torch.empty_like(out) if baseline is not None else None
     for s in range(0, n_frames, chunk):
-        out[s:s + chunk] = _render_batch(c2w[s:s + chunk], K, height, width,
-                                         ph).cpu()
-    return out.numpy(), poses.astype(np.float32), K
+        got = _render_batch(c2w[s:s + chunk], K, height, width, ph, depths)
+        if depths:
+            got, d = got
+            depth[s:s + chunk] = d.cpu()
+        out[s:s + chunk] = got.cpu()
+        if right is not None:
+            c2w_r = c2w[s:s + chunk].clone()
+            c2w_r[:, :3, 3] += baseline * c2w_r[:, :3, 0]
+            right[s:s + chunk] = _render_batch(c2w_r, K, height, width,
+                                               ph).cpu()
+    return Frames(out.numpy(), poses.astype(np.float32), K,
+                  None if depth is None else depth.numpy(),
+                  None if right is None else right.numpy())

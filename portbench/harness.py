@@ -46,6 +46,13 @@ WARMUP_DEG_PER_FRAME = 12.0
 # first steps move every element by about its rate whatever the size of
 # its gradient, so a gradient at rounding level flips a whole step
 MAP_STEP_MIN = 20
+# the camera rigs a configuration's ``tracker.sensor`` may state
+SENSORS = ("mono", "rgbd", "stereo")
+# ``tracker`` keys the harness reads, and those that only describe
+TRACKER_KEYS = ("buffer", "e_active", "e_inactive", "p_window", "k_depth",
+                "motion_filter_thresh", "keyframe_thresh", "global_ba",
+                "gn_iters", "ep", "lm", "sensor", "stereo_baseline_m")
+TRACKER_DESCRIPTIVE = ("network", "dtype")
 
 
 # ---------------------------------------------------------------------------
@@ -121,9 +128,41 @@ def load_cell(workload: str, root: Path = REPO):
     cell = cells[workload]
     configs = {c["name"]: c for c in bench["configs"]}
     config = load_json(root / configs[cell["config"]]["file"])
+    rig(config)
     traffic = load_json(root / ROOT.name / "traffic"
                         / f"{cell['traffic']}.json")
     return bench, cell, config, traffic
+
+
+def rig(config: dict):
+    """(sensor, stereo baseline in metres or None) as the configuration
+    states them; raises, naming the key, on what the harness would not
+    run as stated."""
+    if config.get("multi_gpu", False):
+        raise ValueError(
+            "multi_gpu: true: the harness runs tracking and mapping on one "
+            "card; the two-card layout waits for PERF.md section 7, row 1")
+    t = config["tracker"]
+    for key in t:
+        if key not in TRACKER_KEYS + TRACKER_DESCRIPTIVE:
+            raise ValueError(f"tracker.{key}: the harness does not read it "
+                             f"(it reads {', '.join(TRACKER_KEYS)})")
+    sensor = t.get("sensor", "mono")
+    if sensor not in SENSORS:
+        raise ValueError(f"tracker.sensor: {sensor!r} is none of {SENSORS}")
+    if (sensor == "stereo") != ("stereo_baseline_m" in t):
+        raise ValueError("tracker.stereo_baseline_m: stated with "
+                         "sensor \"stereo\" and only with it")
+    if sensor == "stereo" and not t["stereo_baseline_m"] > 0:
+        raise ValueError("tracker.stereo_baseline_m: a length in metres "
+                         "above 0")
+    return sensor, t.get("stereo_baseline_m")
+
+
+def rig_pose(baseline: float) -> np.ndarray:
+    """cam1_T_cam0 ([t, q_xyzw]) of a right camera ``baseline`` metres
+    along the left camera's x axis (the synthetic dataset's stereo_rel)."""
+    return np.array([-baseline, 0, 0, 0, 0, 0, 1], np.float32)
 
 
 def metrics_for(bench: dict, workload: str, trace: bool) -> List[dict]:
@@ -320,7 +359,6 @@ class Probes:
                    "in_flow": shards[0].in_flow.clone(),
                    "in_weight": shards[0].in_weight.clone(),
                    "timestamps": st.timestamps.clone(),
-                   "sensed": st.idepths_sensed[plan.kx].clone(),
                    "steps": []}
             before = [_clone_carry(c)]
             solve = dba.dba_iterations
@@ -514,7 +552,8 @@ class Counters:
 
 class Cell:
     """The tracker's network and settings, the map's settings and the
-    pre-made frames of one cell."""
+    pre-made frames of one cell: host images, and the depths (RGB-D) or
+    right views (stereo) the configuration's rig senses."""
 
     def __init__(self, config: dict, traffic: dict, seed: int, device):
         from nerf_slam_tpu_torch.models import DroidNet, load_flax_weights
@@ -525,15 +564,24 @@ class Cell:
         self.device = torch.device(device)
         c = config
         self.H, self.W = c["height"], c["width"]
-        self.images, self.poses, self.K = framegen.render(
+        self.sensor, baseline = rig(c)
+        f = framegen.render(
             traffic["session_frames"], self.H, self.W, c["fov_deg"],
-            traffic["deg_per_frame"], seed, self.device)
+            traffic["deg_per_frame"], seed, self.device,
+            depths=self.sensor == "rgbd", baseline=baseline)
+        self.images, self.poses, self.K = f.images, f.poses, f.K
+        self.depths, self.images_right = f.depths, f.images_right
+        self.stereo_rel = None if baseline is None else rig_pose(baseline)
         # bf16 on the card, as the CLI computes; f32 on the CPU
         dtype = torch.bfloat16 if self.device.type == "cuda" \
             else torch.float32
         flat, meta = load_arrays(str(WEIGHTS))
         self.net = load_flax_weights(DroidNet(dtype=dtype), flat)
         t = c["tracker"]
+        sensing = {"rgbd": True} if self.sensor == "rgbd" else {}
+        if self.stereo_rel is not None:
+            sensing = {"stereo": True, "stereo_rel": tuple(
+                float(v) for v in self.stereo_rel)}
         self.fcfg = FrontendConfig(
             buffer=t["buffer"], e_active=t["e_active"],
             e_inactive=t["e_inactive"], p_window=t["p_window"],
@@ -543,7 +591,17 @@ class Cell:
             global_ba=t["global_ba"], gn_iters=t["gn_iters"], ep=t["ep"],
             lm=t["lm"],
             damping_scale=float(meta["damping_scale"]),
-            damping_offset=float(meta["damping_offset"]))
+            damping_offset=float(meta["damping_offset"]), **sensing)
+
+    def rig_packet(self, k: int) -> dict:
+        """What the rig adds to frame ``k``'s packet, by the loaders'
+        keys."""
+        if self.depths is not None:
+            return {"depths": self.depths[k]}
+        if self.images_right is not None:
+            return {"images_right": self.images_right[k],
+                    "stereo_rel": self.stereo_rel}
+        return {}
 
     def frontend(self):
         from nerf_slam_tpu_torch.tracking import RaftVisualFrontend
@@ -610,7 +668,8 @@ def _source_class():
             # "t_cams" carries the frame's index in the pre-made sequence
             pkt = {"k": self.i, "t_cams": float(k), "images": c.images[k],
                    "intrinsics": c.K, "poses": c.poses[k],
-                   "is_last_frame": self.i == len(self.order) - 1}
+                   "is_last_frame": self.i == len(self.order) - 1,
+                   **c.rig_packet(k)}
             self.i += 1
             self.proxy.t_hand = time.perf_counter()
             return pkt

@@ -1,7 +1,8 @@
 """The tracker's plain reference: DroidNet from the weight file, the
 encoders, the correlation pyramid and its windowed lookup, the motion
 filter's magnitude, and an update round's iterations (projective
-transform, lookup, update operator, damping pool, dense BA).
+transform, lookup, update operator, damping pool, dense BA), with a
+stereo rig's (i, i) edges and an RGB-D sensor's inverse depths.
 
 Plain PyTorch in float32 with TF32 off, from frozen copies of the
 algorithm (``layers``, ``update``, ``camera``, ``se3``, ``dba``,
@@ -72,13 +73,17 @@ def load_net(weights_path: str, device, quant: Optional[Callable] = None
     return net.to(device).eval().requires_grad_(False)
 
 
+def _normalize(images_u8: torch.Tensor) -> torch.Tensor:
+    mean = torch.tensor(MEAN, device=images_u8.device)
+    std = torch.tensor(STD, device=images_u8.device)
+    return (images_u8.float() / 255.0 - mean) / std
+
+
 @torch.no_grad()
 def encode(net: DroidNet, images_u8: torch.Tensor):
     """(N, H, W, 3) uint8 -> features (N, h, w, 128), hidden init (tanh)
     and context (relu)."""
-    mean = torch.tensor(MEAN, device=images_u8.device)
-    std = torch.tensor(STD, device=images_u8.device)
-    x = (images_u8.float() / 255.0 - mean) / std
+    x = _normalize(images_u8)
     f = net.features(x)
     net_h, inp = net.context(x)
     return f, net_h, inp
@@ -156,14 +161,19 @@ def motion_magnitude(net: DroidNet, img_cur: torch.Tensor,
 
 @torch.no_grad()
 def update_step(net: DroidNet, cap: dict, before: dict,
-                images_u8: torch.Tensor, K: np.ndarray, cfg: dict) -> dict:
+                images_u8: torch.Tensor, K: np.ndarray, cfg: dict,
+                right_u8: Optional[torch.Tensor] = None) -> dict:
     """One iteration of an update round from the carry the program held
     before it (poses, inverse depths, damping, GRU hidden states, flows,
     weights) and the round's plan, with features, contexts and
     correlation pyramids recomputed from the frames: projective
     transform, lookup, update operator.  ``images_u8``: the pre-made
-    frames on the device, indexed by the keyframes' frame ids.  Returns
-    the flow targets and weights after it."""
+    frames on the device, indexed by the keyframes' frame ids.  With a
+    rig pose ``cfg["stereo_rel"]``, the live (i, i) edges are stereo
+    edges: they correlate the left features of i with the right
+    features of i (from ``right_u8``, the right views) and project
+    through the rig pose.  Returns the flow targets and weights after
+    it."""
     dev = images_u8.device
     p = dba.DBAPlan(**cap["plan"])
     c = {k: v.float() for k, v in before.items()}
@@ -181,12 +191,22 @@ def update_step(net: DroidNet, cap: dict, before: dict,
     intr = intrinsics(K, B, cfg, dev)
     on = (p.edge_valid[:ea] > 0)[:, None, None, None]
     ii, jj = p.ii[:ea], p.jj[:ea]
+    rig = cfg.get("stereo_rel")
+    f_j = feat[jj]
+    if rig is not None:
+        stereo = on[:, 0, 0, 0] & (ii == jj)
+        s_slots = torch.unique(ii[stereo])
+        if s_slots.numel():
+            feat_r = torch.zeros_like(feat)
+            feat_r[s_slots] = net.features(_normalize(
+                right_u8[frame[s_slots]]))
+            f_j = torch.where(stereo[:, None, None, None], feat_r[jj], f_j)
     coords1, _, _ = camera.projective_transform(c["poses"], c["disps"], intr,
-                                                ii, jj)
+                                                ii, jj, stereo_rel=rig)
     coords0 = camera.coords_grid(h, w, device=dev)
     motion = torch.cat([coords1 - coords0, c["flow"] - coords1],
                        -1).clamp(-64.0, 64.0)
-    cvals = lookup(pyramid(feat[ii], feat[jj]), coords1) * on
+    cvals = lookup(pyramid(feat[ii], f_j), coords1) * on
     _, delta, weight = net.update(c["hidden"], None, cvals, motion,
                                   gates_inp=net.update_precompute(ctx[ii]))
     return {"flow": torch.where(on, coords1 + delta, c["flow"]),
@@ -199,14 +219,33 @@ def intrinsics(K: np.ndarray, B: int, cfg: dict, dev) -> torch.Tensor:
                            device=dev).repeat(B, 1)
 
 
+def sensed_idepths(cap: dict, depths: Optional[torch.Tensor], cfg: dict
+                   ) -> torch.Tensor:
+    """The round's sensed inverse depths, (K, h, w) by depth slot, from
+    the frames' z-depths ``depths`` (n, H, W) by the tracker's stated
+    rule: the pixel at dsf // 2 + dsf * i of each dsf x dsf block, 1 / d
+    where d > 1e-3, else 0.  Zeros where the rig senses no depth."""
+    p = dba.DBAPlan(**cap["plan"])
+    if depths is None:
+        hw = cap["steps"][0][0]["disps"].shape[1:]
+        return torch.zeros((p.kx.shape[0],) + tuple(hw), device=p.kx.device)
+    s = cfg["dsf"]
+    frame = cap["timestamps"].round().long()
+    d = depths[frame[p.kx]][:, s // 2::s, s // 2::s]
+    return torch.where(d > 1e-3, 1.0 / d.clamp(min=1e-3),
+                       torch.zeros_like(d))
+
+
 @torch.no_grad()
 def dba_step(cap: dict, before: dict, after: dict, K: np.ndarray,
-             cfg: dict, lower: bool = False) -> dict:
+             cfg: dict, sensed: torch.Tensor, lower: bool = False) -> dict:
     """The iteration's dense BA from the poses and inverse depths before
     it, on the flow targets, weights and damping the program's update
-    operator left (its own outputs, so this stage is judged alone).
-    ``lower``: the control, with the targets, weights and damping rounded
-    to bfloat16 and the products in TF32."""
+    operator left (its own outputs, so this stage is judged alone), with
+    the sensed inverse depths ``sensed`` (:func:`sensed_idepths`) and the
+    rig pose ``cfg["stereo_rel"]``.  ``lower``: the control, with the
+    targets, weights, damping and sensed depths rounded to bfloat16 and
+    the products in TF32."""
     p = dba.DBAPlan(**cap["plan"])
     B = cap["timestamps"].shape[0]
     dev = before["poses"].device
@@ -215,30 +254,39 @@ def dba_step(cap: dict, before: dict, after: dict, K: np.ndarray,
                          cap["in_weight"].float()])
     eta_k = cfg["damping_scale"] * after["damping"].float()[p.kx] \
         + cfg["damping_offset"]
+    sensed = sensed.float()
     if lower:
-        targets, weights, eta_k = bf16(targets), bf16(weights), bf16(eta_k)
+        targets, weights, eta_k, sensed = (
+            bf16(targets), bf16(weights), bf16(eta_k), bf16(sensed))
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = lower
     try:
         poses, disps = dba.dba_iterations(
             before["poses"].float(), before["disps"].float(),
-            intrinsics(K, B, cfg, dev), targets, weights, eta_k,
-            cap["sensed"].float(), p, iters=cfg["gn_iters"], ep=cfg["ep"],
-            lm=cfg["lm"])
+            intrinsics(K, B, cfg, dev), targets, weights, eta_k, sensed, p,
+            iters=cfg["gn_iters"], ep=cfg["ep"], lm=cfg["lm"],
+            stereo_rel=cfg.get("stereo_rel"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return {"poses": poses, "disps": disps}
 
 
-def flow_gap(cap: dict, prog: dict, ref: dict) -> float:
+def flow_gap(cap: dict, prog: dict, ref: dict, stereo: bool = False
+             ) -> float:
     """Median over the live edges' pixels of the distance (pixels)
     between two flow targets.  A median, because a few pixels that
-    project far outside the frame amplify any rounding."""
+    project far outside the frame amplify any rounding.  ``stereo``: the
+    median of the stereo (i, i) edges and that of the others, the worse
+    (the stereo edges are a minority that one median would outvote)."""
     p = dba.DBAPlan(**cap["plan"])
     ea = prog["flow"].shape[0]
     on = p.edge_valid[:ea] > 0
-    return float((prog["flow"][on].float() - ref["flow"][on].float()).norm(
-        dim=-1).median())
+    gap = (prog["flow"].float() - ref["flow"].float()).norm(dim=-1)
+    kinds = [on]
+    if stereo:
+        same = p.ii[:ea] == p.jj[:ea]
+        kinds = [k for k in (on & ~same, on & same) if k.any()]
+    return max(float(gap[k].median()) for k in kinds)
 
 
 def disp_gap(cap: dict, prog: dict, ref: dict) -> float:
