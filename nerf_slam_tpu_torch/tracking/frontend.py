@@ -29,10 +29,15 @@ The steps run inside spans of ``utils.runtime`` (recorded while a
 profiler records): ``track.frame`` (a call, with the frame's ``k`` and
 the tracker's ``session``, which each ``reset`` renews) over
 ``track.ingest`` (upload, encoders; inside it ``track.motion``, the
-magnitude and its read), ``track.graph`` (graph edits, edge-slot sync,
-the round's plan and shards), ``track.iter`` (an update iteration;
-inside it ``track.dba``), ``track.kf_dist``, ``track.export`` (inside it
-``track.cov``) and ``track.viz_out``; and ``track.reset``.
+magnitude and its read), preceded, for a packet with depths, by
+``track.sense`` (the depths' upload and, RGB-D, the sensed inverse
+depths), ``track.graph`` (graph edits, edge-slot sync, the round's plan
+and shards), ``track.iter`` (an update iteration; inside it
+``track.dba``, whose ids ``sensed_px`` and ``depth_px`` count the
+feature-grid pixels of the solve's depth slots that carry the
+sensed-depth prior and that hold a valid depth), ``track.kf_dist``,
+``track.export`` (inside it ``track.cov``) and ``track.viz_out``; and
+``track.reset``.
 """
 from __future__ import annotations
 
@@ -268,6 +273,13 @@ class RaftVisualFrontend:
         self._pending_app_n_old = 0
         self.graph = graphlib.CovisibilityGraph(max_factors=cfg.max_factors)
         self.viz_idx = np.zeros(B, dtype=bool)
+        # per keyframe slot, counted on the host at ingest: the feature-grid
+        # pixels with a valid depth, and those with a sensed inverse depth
+        # (they carry the prior in the DBA); permuted with the state
+        self.depth_px = np.zeros(B, np.int64)
+        self.sensed_px = np.zeros(B, np.int64)
+        # the current round's sums of both over its depth slots
+        self._window_px = {"sensed_px": 0, "depth_px": 0}
 
         init_pose = se3.from_matrix(torch.as_tensor(
             np.linalg.inv(self.world_T_cam0_t0), dtype=f32, device=dev))
@@ -355,7 +367,7 @@ class RaftVisualFrontend:
                 self._normalize(img1))[0].to(torch.bfloat16)
         if batch.get("idepths_sensed") is not None:
             st.idepths_sensed[slot] = torch.as_tensor(
-                np.asarray(batch["idepths_sensed"], np.float32), device=dev)
+                batch["idepths_sensed"], dtype=torch.float32, device=dev)
         st.timestamps[slot] = float(batch["t_cams"]) \
             if batch.get("t_cams") is not None else float(k)
         st.images[slot] = img
@@ -365,13 +377,41 @@ class RaftVisualFrontend:
         if batch.get("poses") is not None:
             st.gt_poses[slot] = torch.as_tensor(
                 np.asarray(batch["poses"], np.float32), device=dev)
-        if batch.get("depths") is not None:
-            st.gt_depths[slot] = torch.as_tensor(
-                np.asarray(batch["depths"], np.float32), device=dev)
         st.features[slot] = f.to(torch.bfloat16)
         st.contexts[slot] = c[0].to(torch.bfloat16)
         st.cst_contexts[slot] = ci[0].to(torch.bfloat16)
         return mag
+
+    def _sense(self, slot: int, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A depth packet's work before its ingest into ``slot``, in the
+        ``track.sense`` span: the depths uploaded as the slot's ground
+        truth; under ``cfg.rgbd`` the sensed inverse depths derived from
+        them at feature resolution (a pixel of each dsf x dsf block; 0
+        where the sensor saw nothing) and uploaded, for ``_ingest`` to
+        store; and the slot's host counts of valid depth pixels and of
+        sensed ones.  Returns the batch, with ``idepths_sensed`` added
+        where derived; a packet without depths passes unchanged."""
+        depths, sensed = batch.get("depths"), batch.get("idepths_sensed")
+        if depths is None and sensed is None:
+            return batch
+        cfg, dev = self.cfg, self.device
+        with runtime.span("track.sense"):
+            valid = None
+            if depths is not None:
+                depths = np.asarray(depths, np.float32)
+                self.state.gt_depths[slot] = torch.as_tensor(depths,
+                                                             device=dev)
+                d = depths[cfg.dsf // 2::cfg.dsf, cfg.dsf // 2::cfg.dsf]
+                valid = d > 1e-3
+                if cfg.rgbd and sensed is None:
+                    sensed = np.where(valid, 1.0 / np.maximum(d, 1e-3),
+                                      0.0).astype(np.float32)
+                    batch = dict(batch, idepths_sensed=torch.as_tensor(
+                        sensed, device=dev))
+            on = None if sensed is None else np.asarray(sensed) > 0
+            self.sensed_px[slot] = 0 if on is None else int(on.sum())
+            self.depth_px[slot] = int((on if valid is None else valid).sum())
+        return batch
 
     # ------------------------------------------------------------------
     # edge-state maintenance
@@ -537,6 +577,8 @@ class RaftVisualFrontend:
         perm = np.arange(B)
         perm[kf_idx:-1] = np.arange(kf_idx + 1, B)
         self.state.permute(torch.as_tensor(perm, device=self.device))
+        self.depth_px = self.depth_px[perm]
+        self.sensed_px = self.sensed_px[perm]
         g = self.graph
         n_in_before = g.n_inactive
         m_act = (g.ii == kf_idx) | (g.jj == kf_idx)
@@ -554,8 +596,9 @@ class RaftVisualFrontend:
     # ------------------------------------------------------------------
     # the update: GRU + DBA iterations, then the export tail
     # ------------------------------------------------------------------
-    def _plan(self, use_inactive: bool, kf0: int, kf1: int) -> dba.DBAPlan:
-        """Slot-aligned DBA plan over [active slots ++ inactive slots]."""
+    def _plan(self, use_inactive: bool, kf0: int, kf1: int):
+        """Slot-aligned DBA plan over [active slots ++ inactive slots], and
+        the keyframes of its depth slots (host)."""
         cfg, g = self.cfg, self.graph
         Ea, Ei = cfg.e_active, cfg.e_inactive
         ii_all = np.zeros(Ea + Ei, np.int64)
@@ -572,9 +615,10 @@ class RaftVisualFrontend:
         return self._slot_aligned_plan(ii_all, jj_all, valid, kf0, kf1)
 
     def _slot_aligned_plan(self, ii_all, jj_all, valid, kf0: int,
-                           kf1: int) -> dba.DBAPlan:
-        """DBA plan whose edge axis is the given slot layout; under
-        ``schur_impl="sparse"`` it carries the interaction list."""
+                           kf1: int):
+        """DBA plan whose edge axis is the given slot layout (under
+        ``schur_impl="sparse"`` it carries the interaction list), and the
+        keyframes of its depth slots (host)."""
         cfg = self.cfg
         P, K = cfg.p_window, cfg.k_depth
         kf_ids = np.unique(np.concatenate([np.arange(kf0, kf1),
@@ -605,7 +649,7 @@ class RaftVisualFrontend:
             arrays["pair_a"], arrays["pair_b"], arrays["pair_valid"] = \
                 dba.compute_pairs(arrays["pi"], arrays["pj"], arrays["kk"],
                                   valid, pad_to=self._pair_pad)
-        return dba.plan_from_numpy(arrays, self.device)
+        return dba.plan_from_numpy(arrays, self.device), kf_ids
 
     def _lookup(self, levels, n_act: torch.Tensor):
         """The update loop's lookup under ``cfg.corr_impl``: a function
@@ -709,7 +753,7 @@ class RaftVisualFrontend:
                 eta_k = cfg.damping_scale * c["damping"][plan.kx] \
                     + cfg.damping_offset
                 edges = self._edge_shards(c, shards)
-                with runtime.span("track.dba"):
+                with runtime.span("track.dba", **self._window_px):
                     c["poses"], c["disps"] = dba.dba_iterations(
                         c["poses"], c["disps"], st.intrinsics,
                         edges[0].targets, edges[0].weights, eta_k, sens_k,
@@ -818,8 +862,10 @@ class RaftVisualFrontend:
             kf0 = max(0, int(g.ii.min()))
             kf1 = max(int(g.ii.max()), int(g.jj.max())) + 1
             self._flush_pending()
-            plan = self._plan(use_inactive, kf0, kf1)
+            plan, kf_ids = self._plan(use_inactive, kf0, kf1)
             shards = self._shards(plan)
+            self._window_px = {"sensed_px": int(self.sensed_px[kf_ids].sum()),
+                               "depth_px": int(self.depth_px[kf_ids].sum())}
         ed = self.edges
         disps = st.idepths
         if seed_sensed_slot >= 0:
@@ -872,17 +918,9 @@ class RaftVisualFrontend:
 
     def _track(self, k: int, batch: Dict[str, Any]):
         cfg = self.cfg
-        if cfg.rgbd and batch.get("depths") is not None \
-                and batch.get("idepths_sensed") is None:
-            # sensed inverse depths at feature resolution (a pixel of each
-            # dsf x dsf block; 0 where the sensor saw nothing)
-            d = np.asarray(batch["depths"], np.float32)[
-                cfg.dsf // 2::cfg.dsf, cfg.dsf // 2::cfg.dsf]
-            batch = dict(batch)
-            batch["idepths_sensed"] = np.where(
-                d > 1e-3, 1.0 / np.maximum(d, 1e-3), 0.0)
         if self.last_k is None:
             assert k == 0 and self.kf_idx == 0
+            batch = self._sense(0, batch)
             with runtime.span("track.ingest"):
                 self._ingest(k, 0, batch, with_motion=False)
             self.last_k = k
@@ -895,6 +933,7 @@ class RaftVisualFrontend:
 
         assert self.kf_idx < cfg.buffer
         with_motion = cfg.motion_filter_thresh >= 0
+        batch = self._sense(self.kf_idx, batch)
         with runtime.span("track.ingest"):
             mag = self._ingest(k, self.kf_idx, batch, with_motion)
         if with_motion:
@@ -1081,7 +1120,7 @@ class RaftVisualFrontend:
         ii_p, jj_p = np.zeros(E_g, np.int64), np.zeros(E_g, np.int64)
         valid = np.arange(E_g) < n_e
         ii_p[:n_e], jj_p[:n_e] = ii, jj
-        plan = self._slot_aligned_plan(ii_p, jj_p, valid, 0, t)
+        plan, _ = self._slot_aligned_plan(ii_p, jj_p, valid, 0, t)
         K = plan.kx.shape[0]
         seg = torch.where(plan.edge_valid > 0, plan.kk, -1)
         on = plan.edge_valid

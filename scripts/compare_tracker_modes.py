@@ -19,6 +19,12 @@ monochrome); ``--source euroc`` renders the room at EuRoC's aspect
 (480x752 scaled to the size), writes it in the EuRoC ``mav0/`` layout
 (``chip_smoke.write_euroc``) and feeds the port loader's packets,
 rectified to ``--height`` x ``--width``.
+``--init_only`` stops each tracker where its initialization ends (the
+first ``keyframe_warmup`` + 1 keyframes after their 16 update
+iterations) and prints the same numbers for those keyframes, with the
+median ratio of their inverse depths to the frames' true ones (one pixel
+of each 8x8 block, as the RGB-D tracker senses them): the step at which
+an RGB-D session's Sim(3) scale is first read.
 
 It imports both packages (as the tests do).
 """
@@ -54,6 +60,7 @@ def parse_args(argv=None):
                    default="synthetic")
     p.add_argument("--packages", default="port,jax")
     p.add_argument("--threads", type=int, default=6)
+    p.add_argument("--init_only", action="store_true")
     return p.parse_args(argv)
 
 
@@ -130,6 +137,28 @@ def load_frames(args):
     return frames
 
 
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+def init_numbers(tracker, frames) -> dict:
+    """The initialized keyframes' trajectory against the ground truth and
+    their inverse depths against the frames' true ones."""
+    from nerf_slam_tpu_torch.utils.evaluation import (_pose_to_c2w_translation,
+                                                      ate_rmse,
+                                                      umeyama_alignment)
+    st, n = tracker.state, tracker.kf_idx
+    est = _pose_to_c2w_translation(_host(st.cam_T_world)[:n])
+    gt = _host(st.gt_poses)[:n, :3, 3]
+    idepths = _host(st.idepths)[:n]
+    true = np.stack([1.0 / frames[tracker.kf_idx_to_f_idx[i]]["depths"][
+        4::8, 4::8] for i in range(n)])
+    return {"keyframes": n, "ate_sim3_m": ate_rmse(est, gt),
+            "sim3_scale": umeyama_alignment(est, gt)[2],
+            "ate_se3_m": ate_rmse(est, gt, align_scale=False),
+            "idepth_ratio": float(np.median(idepths / true))}
+
+
 def main(argv=None) -> int:
     from nerf_slam_tpu_torch.utils.checkpoint import load_arrays
     from nerf_slam_tpu_torch.utils.evaluation import (ate_rmse,
@@ -149,9 +178,18 @@ def main(argv=None) -> int:
             out = tracker(k, f)
             if out is not None and "viz_idx" in out:
                 last = out
+            if args.init_only and tracker.is_initialized:
+                break
         wall = time.perf_counter() - t0
-        pkt = {k: (np.asarray(v.cpu() if hasattr(v, "cpu") else v)
-                   if hasattr(v, "shape") else v) for k, v in last.items()}
+        if args.init_only:
+            print(json.dumps({"package": name, "mode": args.mode,
+                              "source": args.source, "at": "init",
+                              "size": [args.height, args.width],
+                              **init_numbers(tracker, frames),
+                              "wall_s": wall}), flush=True)
+            continue
+        pkt = {k: (_host(v) if hasattr(v, "shape") else v)
+               for k, v in last.items()}
         est, gt = trajectory_from_packet(pkt)
         print(json.dumps({
             "package": name, "mode": args.mode, "source": args.source,

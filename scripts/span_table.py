@@ -18,7 +18,11 @@ where no thread holds the lock, to the innermost span open on the first
 thread that has one (``slam``, ``fusion``, ``gui``, then the rest); where
 no span is open anywhere, to "(no span)".  Also prints the proxies'
 ``track_ms.keyframe`` and the mean ms of a mapping call's training step
-(calls without a packet), which a program without spans gives too.
+(calls without a packet), which a program without spans gives too.  An
+RGB-D cell's rows include ``track.sense`` (a depth packet's sensing,
+before ``track.ingest``), and the summary sums the window's
+``track.dba`` spans' ``sensed_px`` and ``depth_px`` (the solves' depth
+pixels that carry the sensed-depth prior, and all their valid ones).
 
 Needs an NVIDIA GPU (``--device cpu`` runs it at the CPU tests' tiny
 size, a rehearsal and never a measurement).
@@ -167,7 +171,10 @@ def table(run, spans):
                     "idle_ms": 1e-6 * r["idle_ns"] / n,
                     "long_idle_ms": 1e-6 * r["long_ns"] / n})
     total_idle = sum(b - a for a, b in idle_gaps)
+    solves = [s.ids for s in win if s.name == "track.dba"]
     return {"frames": frames, "steps": steps, "idle_s": total_idle,
+            "sensed_px": sum(i.get("sensed_px", 0) for i in solves),
+            "depth_px": sum(i.get("depth_px", 0) for i in solves),
             "idle_share_no_span": (1e-9 * idle[None] / total_idle
                                    if total_idle else None),
             "rows": out}

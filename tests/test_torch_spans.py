@@ -242,6 +242,53 @@ def test_tiny_tracker_and_maps_record_every_span_their_path_reaches():
                          ("track.motion", "track.ingest"),
                          ("map.backward", "map.step")):
         assert {s.parent.name for s in runtime.spans(name)} == {parent}
+    # monocular packets: nothing sensed, no depth pixel in any solve
+    assert "track.sense" not in names
+    assert {(s.ids["sensed_px"], s.ids["depth_px"])
+            for s in runtime.spans("track.dba")} == {(0, 0)}
+
+
+def test_sense_spans_and_the_solves_pixel_counts():
+    """Twelve orbit frames through the tracker of a tiny RGB-D cell, each
+    packet with its depths (the monocular cell's test above checks the
+    converse): ``track.sense`` once for each depth packet; each
+    ``track.dba`` span's ``sensed_px`` and ``depth_px`` equal to the
+    valid depth pixels of the solve's depth slots, counted on the host
+    from the frames' depths; and the tracker's per-slot counts move with
+    its state when a keyframe is removed."""
+    cell = _tiny_cell("sigma_rgbd_384x512")
+    fe = cell.frontend()
+    dsf = fe.cfg.dsf
+    expected = []
+    iterate = fe._iterate
+
+    def watched(n, c, plan, shards):
+        slots = plan.kx[plan.k_valid > 0].tolist()
+        px = sum(int((cell.depths[int(fe.state.timestamps[s])][
+            dsf // 2::dsf, dsf // 2::dsf] > 1e-3).sum()) for s in slots)
+        expected.extend([{"sensed_px": px, "depth_px": px}] * n)
+        return iterate(n, c, plan, shards)
+    fe._iterate = watched
+    with _cpu_profile():
+        for k in range(12):
+            fe(k, {"k": k, "t_cams": float(k), "images": cell.images[k],
+                   "intrinsics": cell.K, "poses": cell.poses[k],
+                   "is_last_frame": False, **cell.rig_packet(k)})
+    senses = runtime.spans("track.sense")
+    got = [s.ids for s in runtime.spans("track.dba")]
+    assert len(got) == len(expected) > 0 and got == expected
+    assert len(senses) == 12
+    assert {s.parent.name for s in senses} == {"track.frame"}
+    n = fe.kf_idx
+    assert (fe.depth_px[:n] == fe.sensed_px[:n]).all()
+    assert (fe.sensed_px[:n] == (fe.state.idepths_sensed[:n] > 0).sum(
+        (1, 2)).numpy()).all()
+    # distinct counts a slot, so that the roll shows
+    fe.sensed_px[:n], fe.depth_px[:n] = np.arange(n), 100 + np.arange(n)
+    fe.rm_keyframe(2)
+    keep = np.r_[0:2, 3:n]
+    assert (fe.sensed_px[:n - 1] == keep).all()
+    assert (fe.depth_px[:n - 1] == 100 + keep).all()
 
 
 # ---------------------------------------------------------------------------
