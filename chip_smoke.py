@@ -6,14 +6,16 @@ Builds the port's CUDA kernels from ``nerf_slam_tpu_torch/ops/csrc``,
 checks each against its plain PyTorch version at the tracking shapes of
 the 336x640 production cell, times it beside its bound (counted in
 elements and in 32-byte sectors) and, for the two one-level kernels,
-beside one ``F.grid_sample`` call that computes the same function, then
-drives the main path end to end: synthetic frames -> DataModule ->
-SlamModule (RaftVisualFrontend, trained weights, motion filter 2.4 px,
-keyframe rejection 4.0) -> FusionModule (PE-NeRF) -> EvalSink, as
-``bench.py`` configures it.  One sequential run gives the quality numbers
-(ATE-RMSE, PSNR after 2000 NGP iterations, as QUALITY.md measures them);
-one threaded run, with the launch counters zeroed just before it, gives
-keyframes/s and shows that the main path went through its kernels.  The
+beside one ``F.grid_sample`` call that computes the same function, and
+the segment-sum kernel against the one-hot product at the sigma cells'
+dense-BA and GRU-pool shapes, then drives the main path end to end:
+synthetic frames -> DataModule -> SlamModule (RaftVisualFrontend, trained
+weights, motion filter 2.4 px, keyframe rejection 4.0) -> FusionModule
+(PE-NeRF) -> EvalSink, as ``bench.py`` configures it.  One sequential run
+gives the quality numbers (ATE-RMSE, PSNR after 2000 NGP iterations, as
+QUALITY.md measures them); one threaded run, with the launch counters
+zeroed just before it, gives keyframes/s and shows that the main path
+went through its kernels (the lookups and the segment sums).  The
 tracker is bit-reproducible: it then runs the same frames once more,
 alone and sequentially on fresh state, and the keyframe list, every pose
 and every depth map must equal the sequential run's to the bit.
@@ -153,6 +155,11 @@ W_ODD = 600                 # path (c): feature width 75, not a multiple of 16
 NGP_HORIZON = 2000          # QUALITY.md: NGP iterations before PSNR
 ATE_LIMIT_M = 0.25          # QUALITY.md 0.1835 m; random weights ~0.79 m
 SEED = 0
+
+# the segment-sum kernel's check at the benchmark's sigma cells
+# (portbench/configs/sigma_*_384x512.json): 48x64 features, 48 + 48 edge
+# slots, a pose window of 32, 40 depth slots
+SEG_HW, SEG_E, SEG_P, SEG_K = 48 * 64, 96, 32, 40
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) flop/s
 PEAK_BYTES_S = 3.35e12
@@ -584,6 +591,96 @@ def kernel_phase(dev):
     return entries
 
 
+def segment_phase(dev):
+    """The segment-sum kernel against its plain version (the one-hot
+    products) at the dense BA's four sums (Hgrid: 4E rows of 6 x 6 into
+    P x P segments; v: 2E of 6 into P; C/w: E of 2 x HW into K; Ehat: 2E
+    of 6 x HW into P x K, all f32) and the GRU pool (48 edges of HW x 128
+    bf16, a mean over K), ids from a plan of the sigma cells' padded
+    shapes.  Each within f32 rounding of the one-hot product (1e-6 of the
+    segment's sum of |x|, plus one bf16 rounding of a bf16 output), its
+    largest gap printed (0 where cuBLAS adds the rows in ascending order
+    too); at Ehat and the pool the kernel's time beside its byte bound
+    (kept rows and ids read once, the outputs written once) and the plain
+    version's time.  Returns the ``kernels`` entry."""
+    from nerf_slam_tpu_torch.ops import segment
+    from nerf_slam_tpu_torch.solver import dba
+
+    kf0, kf1 = 60, 60 + SEG_P
+    edges = [(i, j) for i in range(kf0 - 4, kf1) for j in range(kf0, kf1)
+             if 0 < abs(i - j) <= 3][:SEG_E]
+    p = dba.plan(np.array([e[0] for e in edges]),
+                 np.array([e[1] for e in edges]), kf0, kf1, SEG_E, SEG_P,
+                 SEG_K, device=dev)
+
+    def pair(a, b, n):
+        return torch.where((a >= 0) & (b >= 0), a * n + b, -1)
+
+    pp, kk2 = torch.cat([p.pi, p.pj]), torch.cat([p.kk, p.kk])
+    quad = (torch.cat([p.pi, p.pi, p.pj, p.pj]),
+            torch.cat([p.pi, p.pj, p.pi, p.pj]))
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # name: (ids, n_seg, row shape, dtype, mean, timed)
+    cases = {
+        "ehat": (pair(pp, kk2, SEG_K), SEG_P * SEG_K, (6, SEG_HW), f32,
+                 False, True),
+        "pool": (torch.where(p.edge_valid[:48] > 0, p.kk[:48], -1), SEG_K,
+                 (SEG_HW, 128), bf16, True, True),
+        "hgrid": (pair(*quad, SEG_P), SEG_P * SEG_P, (6, 6), f32, False,
+                  False),
+        "v": (pp, SEG_P, (6,), f32, False, False),
+        "cw": (p.kk, SEG_K, (2, SEG_HW), f32, False, False)}
+    res = {}
+    for name, (ids, n_seg, shape, dtype, mean, timed) in cases.items():
+        x = torch.randn((ids.shape[0],) + shape, generator=g,
+                        device=dev).to(dtype)
+        fn = segment.segment_mean if mean else segment.segment_sum
+        got = fn(x, ids, n_seg).reshape(n_seg, -1).float()
+        want = segment.sums_plain(x, ids, n_seg, dtype, mean)[0].float()
+        scale = segment.sums_plain(x.abs(), ids, n_seg, f32, mean)[0]
+        torch.cuda.synchronize()
+        gap = (got - want).abs()
+        err = float(gap.max())
+        rel = float((gap / scale.clamp(min=1e-30)).max())
+        tol = 1e-6 * scale + (2.0 ** -8 * want.abs() if dtype == bf16
+                              else 0.0)
+        if not bool((gap <= tol + 1e-30).all()):
+            raise RuntimeError(f"segment sum ({name}) differs from the "
+                               f"one-hot product beyond f32 rounding: max "
+                               f"|err| {err}")
+        line = (f"kernel segment_sum ({name}) {ids.numel()} rows x "
+                f"{x[0].numel()} {str(dtype)[6:]} into {n_seg} segments"
+                f"{', mean' if mean else ''}: one-hot product's bits "
+                f"{torch.equal(got, want)}, max |err| {err:.3g} ("
+                f"{rel:.3g} of the segment's sum of |x|)")
+        res[name] = dict(err=err, rel=rel, bits=torch.equal(got, want))
+        if timed:
+            ms = time_ms(lambda: fn(x, ids, n_seg))
+            plain_ms = time_ms(lambda: segment.sums_plain(
+                x, ids, n_seg, dtype, mean), reps=10, warmup=2)
+            kept = int(((ids >= 0) & (ids < n_seg)).sum())
+            cols = x[0].numel()
+            nb = (kept + n_seg) * cols * x.element_size() + ids.numel() * 8
+            b_ms, b_by = bound(nb, kept * cols + (n_seg * cols if mean
+                                                  else 0))
+            res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, bytes=nb, kept_rows=kept)
+            line += (f", {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{b_ms:.4f} ms ({b_by}, {nb / 1e6:.1f} MB, {kept} rows "
+                     f"kept), {100 * b_ms / ms:.1f}% of it")
+        log(line)
+        del x, got, want, scale, gap
+    r = res["ehat"]
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "nerf_slam_tpu_torch/ops/csrc/segment_sum.cu",
+            "replaces": None, "max_abs_err": max(v["err"]
+                                                 for v in res.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shapes": res}
+
+
 def build_frontend(dev, width: int = W, **extra):
     """The tracker as bench.py configures its production cell; ``extra``
     overrides ``FrontendConfig`` fields."""
@@ -664,7 +761,7 @@ def same_bits(a, b) -> bool:
 
 
 def pipeline_phase(dev):
-    from nerf_slam_tpu_torch.ops import corr_lookup
+    from nerf_slam_tpu_torch.ops import corr_lookup, segment
 
     frames = synthetic_frames(W)
     frontend, fusion = build_main_path(dev)
@@ -697,8 +794,9 @@ def pipeline_phase(dev):
 
     # speed: the threaded run bench.py times; counters zeroed just before
     corr_lookup.reset_launches()
+    segment.reset_launches()
     wall, sink = run_pipeline(frames, frontend, fusion, parallel=True)
-    launches = dict(corr_lookup.launches)
+    launches = {**corr_lookup.launches, **segment.launches}
     ate = trajectory_error(sink)
     n_kf = frontend.kf_idx + 1
     log(f"pipeline threaded (timed): {n_kf / wall:.4f} keyframes/s, {n_kf} "
@@ -706,8 +804,8 @@ def pipeline_phase(dev):
         f"{ate:.4f} m, {fusion.iteration} NGP iterations")
     log(f"launches on the main path: {launches}")
     threaded_same = same_bits(first, tracker_result(frontend))
-    missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid")
-               if launches[k] <= 0]
+    missing = [k for k in ("corr_lookup_grouped4", "corr_lookup_pyramid",
+                           "segment_sum") if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")
@@ -2169,7 +2267,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     t0 = time.perf_counter()
-    reports = build.build(["corr_lookup"])
+    reports = build.build(["corr_lookup", "segment_sum"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(reports) or 'cached'})")
     for name, rep in reports.items():
@@ -2196,6 +2294,7 @@ def main(argv=None) -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s] {tag} done")
 
     entries = kernel_phase(dev)
+    entries.append(segment_phase(dev))
     mark("kernels")
     launches, train_set, pe, frames, first = pipeline_phase(dev)
     mark("main path")

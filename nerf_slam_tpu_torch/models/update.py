@@ -112,10 +112,10 @@ class GraphAgg(nn.Module):
 
     def _pooled(self, net, seg, n_seg: int):
         if isinstance(net, torch.Tensor):
-            x = F.relu(self.conv1(net))
+            x = F.relu(self.conv1(net)).contiguous()
         else:
             dev = self.conv1.weight.device
-            x = [F.relu(self.conv1(n.to(dev))) for n in net]
+            x = [F.relu(self.conv1(n.to(dev))).contiguous() for n in net]
             seg = [s.to(dev) for s in seg]
         return F.relu(self.conv2(segment_mean(x, seg, n_seg)))
 

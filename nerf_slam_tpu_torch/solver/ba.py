@@ -3,8 +3,8 @@
 One Gauss-Newton step on (keyframe poses, per-pixel inverse depths) given
 the GRU's flow targets and confidence weights: the BA of the training
 unroll (``models/training.py``), differentiable end to end.  The per-edge
-blocks are pooled into the block system by ``ops/segment.py`` sums (one
-one-hot product each, in a fixed order: no atomics, forward or backward).
+blocks are pooled into the block system by ``ops/segment.py`` sums (in a
+fixed order: no atomics, forward or backward).
 
 All shapes are static; an edge is masked out by zero weights.
 """
@@ -22,11 +22,13 @@ def _scatter_mat(A, ii, jj, n, m):
     out-of-range indices are dropped."""
     valid = (ii >= 0) & (jj >= 0) & (ii < n) & (jj < m)
     idx = torch.where(valid, ii * m + jj, -1)
-    return segment_sum(A, idx, n * m).reshape((n, m) + tuple(A.shape[1:]))
+    return segment_sum(A.contiguous(), idx, n * m).reshape(
+        (n, m) + tuple(A.shape[1:]))
 
 
 def _scatter_vec(b, ii, n):
-    return segment_sum(b, torch.where((ii >= 0) & (ii < n), ii, -1), n)
+    return segment_sum(b.contiguous(),
+                       torch.where((ii >= 0) & (ii < n), ii, -1), n)
 
 
 def build_system(target, weight, poses, disps, intrinsics, ii, jj):

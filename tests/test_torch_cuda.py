@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from nerf_slam_tpu_torch.models import update
-from nerf_slam_tpu_torch.ops import corr, corr_lookup
+from nerf_slam_tpu_torch.ops import corr, corr_lookup, segment
 from nerf_slam_tpu_torch.solver import dba
 
 pytestmark = pytest.mark.cuda
@@ -404,11 +404,13 @@ def test_segment_sums_repeat_bit_for_bit(dev):
     x_e = torch.from_numpy(rng.randn(96, 6, 3360).astype(np.float32))
     xm, xe = x_m.to(dev).to(torch.bfloat16), x_e.to(dev)
     im, ie = torch.from_numpy(ids_m).to(dev), torch.from_numpy(ids_e).to(dev)
+    segment.reset_launches()
     first_m = update.segment_mean(xm, im, 28)
     first_e = dba.seg_sum(xe, ie, 672)
     for _ in range(20):
         assert torch.equal(update.segment_mean(xm, im, 28), first_m)
         assert torch.equal(dba.seg_sum(xe, ie, 672), first_e)
+    assert segment.launches == {"segment_sum": 42}        # the kernel's
     for x, ids, n, got, mean in ((xm.cpu().double(), ids_m, 28, first_m,
                                   True),
                                  (x_e.double(), ids_e, 672, first_e, False)):
@@ -549,10 +551,11 @@ def test_hash_table_gradient_fixed_order_on_card(dev):
 def test_segment_sum_nonfinite_on_card_matches_cpu(dev):
     """Non-finite blocks at the DBA assembly's shape (96 edges, 6 x 3360
     entries, 40 segments): NaN and +-inf planted in dropped rows (id -1
-    and past the end) and in kept ones.  The card's sum has its NaN and
+    and past the end) and in kept ones.  The kernel's sum has its NaN and
     inf exactly where the CPU's has them, with their signs, and the
-    finite entries agree within 1e-6 of the segment's sum of |x| (the two
-    GEMMs add in different orders); a second call repeats the bits."""
+    finite entries agree within 1e-6 of the segment's sum of |x| (the
+    CPU's GEMM adds in another order); they are the bits of the rows
+    added in ascending order, and a second call repeats them."""
     rng = np.random.RandomState(5)
     ids = rng.randint(0, 40, size=96)
     ids[::7] = -1
@@ -565,9 +568,14 @@ def test_segment_sum_nonfinite_on_card_matches_cpu(dev):
     ids[20] = ids[21] = 5                 # +inf and -inf meet: NaN
     xt, it = torch.from_numpy(x), torch.from_numpy(ids)
     want = dba.seg_sum(xt, it, 40)
+    segment.reset_launches()
     got = dba.seg_sum(xt.to(dev), it.to(dev), 40)
     again = dba.seg_sum(xt.to(dev), it.to(dev), 40)
+    assert segment.launches == {"segment_sum": 2}         # the kernel's
     assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    # the rows added in ascending order: the same bits, NaN and inf too
+    assert _same_bits(got.reshape(40, -1), _in_row_order(
+        xt.to(dev), it.to(dev), 40, torch.float32, False)[0])
     got = got.cpu()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(torch.isposinf(got), torch.isposinf(want))
@@ -829,3 +837,180 @@ def test_dba_graph_not_under_shards_or_grad(dev, monkeypatch, case):
     assert not dba._GRAPHS
     for g, e in zip(got, want):
         assert torch.equal(g, e)
+
+
+# ---------------------------------------------------------------------------
+# the segment-sum kernel against the one-hot product (its plain version)
+# ---------------------------------------------------------------------------
+
+def _assembly_ids(dev):
+    """The dense BA's segment ids at the benchmark's shapes, from a plan
+    with padded edge and depth slots (ids -1 there and for poses outside
+    the window): (ids, n_seg) of Hgrid (4E into P * P), v (2E into P),
+    C/w (E into K), Ehat (2E into P * K) and the GRU pool (48 edges into
+    K)."""
+    kf0, kf1, n_old = DBA_WINDOWS["padded"][2]
+    edges = [(i, j) for i in range(kf0 - n_old, kf1)
+             for j in range(kf0, kf1) if i != j and abs(i - j) <= 3]
+    p = dba.plan(np.array([e[0] for e in edges]),
+                 np.array([e[1] for e in edges]), kf0, kf1, DBA_E, DBA_P,
+                 DBA_K, device=dev)
+
+    def pair(a, b, n):
+        return torch.where((a >= 0) & (b >= 0), a * n + b, -1)
+
+    pp = torch.cat([p.pi, p.pj])
+    return {"hgrid": (pair(torch.cat([p.pi, p.pi, p.pj, p.pj]),
+                           torch.cat([p.pi, p.pj, p.pi, p.pj]), DBA_P),
+                      DBA_P * DBA_P),
+            "v": (pp, DBA_P), "cw": (p.kk, DBA_K),
+            "ehat": (pair(pp, torch.cat([p.kk, p.kk]), DBA_K),
+                     DBA_P * DBA_K),
+            "pool": (torch.where(p.edge_valid[:48] > 0, p.kk[:48], -1),
+                     DBA_K)}
+
+
+# name: (ids, row shape, dtype, output: "sum", "mean" or "f32_sums"); ids
+# are _assembly_ids' or (ids, n_seg) written out
+SEG_CASES = {
+    "ehat": ("ehat", (6, 3072), torch.float32, "sum"),
+    "pool_mean": ("pool", (48, 64, 128), torch.bfloat16, "mean"),
+    "pool_sum": ("pool", (48, 64, 128), torch.bfloat16, "sum"),
+    "pool_shard_sums": ("pool", (48, 64, 128), torch.bfloat16, "f32_sums"),
+    "hgrid": ("hgrid", (6, 6), torch.float32, "sum"),
+    "cw": ("cw", (2, 3072), torch.float32, "sum"),
+    "v_scalar_loads": ("v", (6,), torch.float32, "sum"),
+    "bf16_scalar_loads": (([2, -1, 0, 2, 5, 2], 6), (3, 5), torch.bfloat16,
+                          "mean"),
+    "one_row_empty_segments": (([3], 5), (6, 3072), torch.float32, "sum"),
+    "all_dropped": (([-1, 7, -1], 3), (8, 8), torch.float32, "mean"),
+}
+
+
+def _seg_call(x, ids, n_seg, out):
+    """The public entry each output kind takes: (sums, counts or None)."""
+    if out == "f32_sums":
+        return segment.segment_sum_count(x, ids, n_seg)
+    fn = segment.segment_mean if out == "mean" else segment.segment_sum
+    return fn(x, ids, n_seg), None
+
+
+def _in_row_order(x, ids, n_seg, dtype, mean):
+    """The kernel's function spelled out with tensor ops: per segment its
+    rows added one after another in ascending order, in f32 from +0
+    (elementwise IEEE additions), divided by max(count, 1) for a mean,
+    rounded once to ``dtype``.  Returns (sums (n_seg, F), counts)."""
+    flat = x.reshape(ids.shape[0], -1).float()
+    out = torch.zeros((n_seg, flat.shape[1]), device=x.device)
+    count = torch.zeros((n_seg, 1), dtype=torch.int64, device=x.device)
+    for r, s in enumerate(ids.tolist()):
+        if 0 <= s < n_seg:
+            out[s] = out[s] + flat[r]
+            count[s] += 1
+    if mean:
+        out = out / torch.clamp(count, min=1)
+    return out.to(dtype), count
+
+
+def _same_bits(a, b) -> bool:
+    """Equal, NaN where NaN: bit-for-bit up to NaN payloads."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                            b[~nan])
+
+
+@pytest.mark.parametrize("name", sorted(SEG_CASES))
+def test_segment_sum_kernel_matches_onehot(dev, name):
+    """The kernel at the tracker's shapes (the dense BA's four sums, the
+    GRU pool as mean, sum and shard sums) and at the edges (one element a
+    load, one row, empty segments, every row dropped), one launch a call:
+    the bits and counts of its rows added in ascending order, and within
+    f32 rounding of the one-hot product on the card (1e-6 of the
+    segment's sum of |x|, plus one rounding of a bf16 output): cuBLAS
+    accumulates some shapes in another order (``chip_smoke.py`` prints
+    where the two differ)."""
+    key, shape, dtype, out = SEG_CASES[name]
+    ids, n_seg = (_assembly_ids(dev)[key] if isinstance(key, str)
+                  else (torch.tensor(key[0], device=dev), key[1]))
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    x = (2.0 * torch.randn((ids.shape[0],) + shape, generator=g,
+                           device=dev)).to(dtype)
+    out_dt = torch.float32 if out == "f32_sums" else dtype
+    segment.reset_launches()
+    got, count = _seg_call(x, ids, n_seg, out)
+    assert segment.launches == {"segment_sum": 1}
+    got = got.reshape(n_seg, -1)
+    want, want_count = _in_row_order(x, ids, n_seg, out_dt, out == "mean")
+    torch.cuda.synchronize()
+    assert got.dtype == out_dt
+    assert torch.equal(got, want), \
+        f"max |err| {(got.float() - want.float()).abs().max()}"
+    if count is not None:
+        assert torch.equal(count, want_count)
+    hit = (ids[None, :] == torch.arange(n_seg, device=dev)[:, None]).any(1)
+    assert (got[~hit] == 0).all()
+    plain = segment.sums_plain(x, ids, n_seg, out_dt, out == "mean")[0]
+    scale = _in_row_order(x.abs(), ids, n_seg, torch.float32,
+                          out == "mean")[0]
+    tol = 1e-6 * scale + (2.0 ** -8 * plain.float().abs()
+                          if out_dt == torch.bfloat16 else 0.0)
+    assert ((got.float() - plain.float()).abs() <= tol + 1e-30).all()
+
+
+def test_segment_sum_kernel_in_cuda_graph(dev):
+    """Captured under ``torch.cuda.graph`` (the DBA's solve graph
+    captures it so) the kernel launches once at capture, and each replay
+    gives the eager call's bits for the values copied in."""
+    ids, n_seg = _assembly_ids(dev)["ehat"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    static_x = torch.randn((ids.shape[0], 6, 3072), generator=g, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # eager first: the library
+        segment.segment_sum(static_x, ids, n_seg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    segment.reset_launches()
+    with torch.cuda.graph(graph):
+        out = segment.segment_sum(static_x, ids, n_seg)
+    assert segment.launches == {"segment_sum": 1}
+    for _ in range(3):
+        new = torch.randn(static_x.shape, generator=g, device=dev)
+        static_x.copy_(new)
+        graph.replay()
+        assert torch.equal(out, segment.segment_sum(new, ids, n_seg))
+    assert segment.launches == {"segment_sum": 4}
+
+
+@pytest.mark.parametrize("dtype,out", [(torch.float32, "sum"),
+                                       (torch.bfloat16, "mean"),
+                                       (torch.bfloat16, "f32_sums")])
+def test_segment_sum_kernel_gradient_matches_plain(dev, dtype, out):
+    """With grad the kernel's sums go through its autograd Function: the
+    forward gives the row-order sums' bits and the one-hot product's NaN
+    and inf, and the gradient equals the one-hot product's on the card,
+    NaN and inf planted in kept and dropped rows included."""
+    ids = torch.tensor([0, -1, 1, 0, 2, 1, 9, 2, 0, 3], device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((10, 6, 64), generator=g, device=dev).to(dtype)
+    x[0, 0, 3], x[1, 2, 2], x[4, 5, 7] = float("nan"), float("inf"), \
+        -float("inf")
+    x[6, 1, 1], x[7, 5, 7] = float("nan"), float("inf")     # NaN in seg 2
+    x[8, 3, 3] = float("inf")
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    segment.reset_launches()
+    got = _seg_call(xk, ids, 4, out)[0].reshape(4, -1)
+    want = segment.sums_plain(
+        xp, ids, 4, torch.float32 if out == "f32_sums" else dtype,
+        out == "mean")[0]
+    gout = torch.randn(want.shape, generator=g, device=dev).to(want.dtype)
+    gk, = torch.autograd.grad(got, xk, gout)
+    gp, = torch.autograd.grad(want, xp, gout)
+    assert _same_bits(got, _in_row_order(
+        x, ids, 4, want.dtype, out == "mean")[0])
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.isinf(want).any()
+    assert gk.dtype == dtype and torch.equal(gk, gp)
+    assert segment.launches["segment_sum"] >= 2     # forward, backward

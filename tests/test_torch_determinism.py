@@ -232,3 +232,63 @@ def test_segment_sum_finite_bits_unchanged(dtype):
     plain_mean = ((hit.float() @ x.reshape(48, -1).float()) / count) \
         .to(x.dtype).reshape(6, 6, 36)
     assert torch.equal(segment.segment_mean(x, ids, 6), plain_mean)
+
+
+# the backward of the kernel's sums: (x dtype, what is differentiated)
+GRAD_KINDS = [("float32", "sum"), ("float32", "mean"), ("bfloat16", "sum"),
+              ("bfloat16", "mean"), ("bfloat16", "f32_sums")]
+GRAD_CASES = {**{k: (ids, n, []) for k, (ids, n) in CASES.items()},
+              **NONFINITE}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+@pytest.mark.parametrize("dtype,kind", GRAD_KINDS)
+def test_segment_sum_grad_matches_onehot_autograd(case, dtype, kind):
+    """The gradient rule of the card's autograd Function, in plain PyTorch,
+    against autograd through the one-hot product: g of the row's segment
+    (over its count for a mean) for kept rows, 0 for dropped rows, at
+    non-finite entries and in the (segment, column)s they poison; the
+    same bits, cast to x's dtype."""
+    ids, n_seg, plant = GRAD_CASES[case]
+    ids = np.asarray(ids, np.int64)
+    rng = np.random.RandomState(8)
+    x = (rng.randn(ids.shape[0], 2, 3) * 2.0).astype(np.float32)
+    flat = x.reshape(ids.shape[0], -1)
+    for r, c, v in plant:
+        flat[r, c] = v
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    it = torch.from_numpy(ids)
+    out_dt = torch.float32 if kind == "f32_sums" else tdt
+    sums, count = segment.sums_plain(xt, it, n_seg, out_dt, kind == "mean")
+    g = torch.from_numpy(rng.randn(*sums.shape).astype(np.float32)) \
+        .to(out_dt)
+    want, = torch.autograd.grad(sums, xt, g)
+    got = segment.segment_sum_grad(g, xt.detach(), it, n_seg,
+                                   count if kind == "mean" else None)
+    assert got.dtype == tdt and got.shape == xt.shape
+    assert torch.equal(got, want)
+    if plant:
+        assert (got.float().reshape(len(ids), -1)[
+            ~torch.isfinite(xt.detach().float().reshape(len(ids), -1))]
+            == 0).all()
+
+
+def test_cpu_sums_launch_no_kernel():
+    """CPU tensors take the plain version, with and without grad and over
+    shards: the kernel's launch count stays 0, and its launcher refuses
+    them."""
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(10, 3, 4).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(-1, 4, size=10))
+    segment.reset_launches()
+    segment.segment_sum(x, ids, 4)
+    segment.segment_sum_count(x.to(torch.bfloat16), ids, 4)
+    segment.segment_mean(x, ids, 4)
+    segment.segment_mean([x[:6], x[6:]], [ids[:6], ids[6:]], 4)
+    xg = x.clone().requires_grad_(True)
+    segment.segment_mean(xg, ids, 4).sum().backward()
+    assert xg.grad is not None
+    assert segment.launches == {"segment_sum": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        segment._launch(x, ids, 4, torch.float32, False)
